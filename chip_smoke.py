@@ -1,10 +1,13 @@
-"""Smoke run of defl_tpu_torch's batched inflate main path on one CUDA card.
+"""Smoke run of defl_tpu_torch on one CUDA card: the batched inflate main
+path, the device-resident inflate and the streaming session.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit, torch/CUDA versions, and
-     the nvcc build of the decode kernel from csrc/;
+     the builds from csrc/, started together: nvcc for the two kernels
+     (decode_chunk.cu, adler32_batch.cu), g++ for the host engine
+     (defl_host.cc);
   2. the kernel against its plain PyTorch twin, bit for bit, on the card:
      (a) full decodes of a small matrix (dynamic, fixed, stored and raw
      blocks, RLE, dist=2 chains, incompressible data, one byte, BTYPE=3,
@@ -15,13 +18,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      corpus, 8192 zlib-6 streams x 64 KiB; every lane OK and byte-equal,
      no host fallback, and the decode kernel launched;
   4. pipeline_inflate over two distinct (rotated) batches of that corpus
-     with the real token fetch, every lane byte-checked in the sink.
-The line before the last holds the card's name and power limit, the one
-before it the kernels' JSON record; the last line is the result JSON.
-Without CUDA it fails at once and prints no result.  It imports torch,
-numpy and defl_tpu_torch only; the host tier the port borrows from
-defl_tpu (packer, resolver, counters, bench corpus) comes through
-defl_tpu_torch.host.
+     with the real token fetch, every lane byte-checked in the sink;
+  5. the adler32 kernel against its plain PyTorch version, exactly:
+     (a) a small matrix of length and alignment edge cases, each lane
+     also against zlib.adler32; (b) uint8 [8192, 65536] holding the
+     corpus's payloads, with both times;
+  6. the device-resident inflate at full width: device_inflate(
+     FLAG_ZLIB | FLAG_VERIFY_ADLER32, resolve="device") on the corpus;
+     every lane OK and byte-equal, both kernels launched, no token
+     fetched; then one trailer corrupted and one cut, which must come
+     back ERR and UNFINISHED; the device resolver's own time and peak
+     memory;
+  7. DeviceInflateSession on the card, with resolve="host" and
+     resolve="device": 1024 lanes fed in four uneven pieces and then
+     empty feeds, and an EFULL -> resize_output -> resume case.
+Each kernel's count of launches is set to 0 just before the path that
+uses it and read just after.  The line before the last holds the card's
+name and power limit, the one before it the kernels' JSON record; the
+last line is the result JSON.  Without CUDA it fails at once and prints
+no result.  It imports torch, numpy and defl_tpu_torch only.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ import subprocess
 import sys
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -38,6 +54,18 @@ import torch
 N_STREAMS = 8192
 BLOCK = 65536
 CHUNK_K = 512
+SESSION_LANES = 1024
+
+# the card's published peaks (NVIDIA H100 SXM data sheet): device memory
+# rate, and the float32 rate outside the tensor cores, taken here as the
+# ceiling for the kernels' integer operations as well
+HBM_BYTES_PER_S = 3.35e12
+ALU_OPS_PER_S = 67e12
+# operations of one working decode step, counted from csrc/decode_chunk.cu:
+# up to four canonical decodes (15 boundary compares and sums, a 16-bit
+# reversal, two table loads: ~50 each) and ~50 of window shifts, extra
+# bits and state updates
+DECODE_OPS_PER_STEP = 250
 
 
 def log(*a):
@@ -73,7 +101,7 @@ def compare_runs(a, b, what) -> int:
     return err
 
 
-def phase_small_matrix(decode_cu, ib, host):
+def phase_small_matrix(decode_cu, ib, pack, native):
     """(a): full decodes through kernel and twin, bytes checked."""
     rng = np.random.default_rng(7)
     pays = [b"hello hello hello world" * 40, bytes(range(256)) * 16,
@@ -90,7 +118,7 @@ def phase_small_matrix(decode_cu, ib, host):
     want = pays + [None, None]
     caps = [8192] * len(streams)
     caps[2] = 1000            # EFULL, resumed below with a grown cap
-    p = host.pack_streams(streams, zflag, caps)
+    p = pack.pack_streams(streams, zflag, caps)
     args = (p.words, p.nbits, p.zflag, p.dst_cap)
     err = 0
     runs = {}
@@ -116,7 +144,7 @@ def phase_small_matrix(decode_cu, ib, host):
     status = c2["status"].cpu().numpy()
     dst = c2["dst_pos"].cpu().numpy()
     toks = torch.cat([t1[:c1["tok_rows"]], t2[:c2["tok_rows"]]]).T
-    out = host.native.native_resolve_tokens(
+    out = native.native_resolve_tokens(
         toks.contiguous().cpu().numpy().view(np.uint32), p.words, dst, 8192)
     for i, w in enumerate(want):
         if w is None:
@@ -132,16 +160,16 @@ def phase_small_matrix(decode_cu, ib, host):
     co = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_DEFAULT_STRATEGY,
                           zdict=d)
     dp = b"hello world, the quick brown fox jumps " * 30
-    pd = host.pack_streams([co.compress(dp) + co.flush()], 1, 4096)
+    pd = pack.pack_streams([co.compress(dp) + co.flush()], 1, 4096)
     kw = dict(T=4096, K=64, device="cuda", has_dict=True,
-              dict_len=host.pack_dictionary(d)[1])
+              dict_len=pack.pack_dictionary(d)[1])
     dargs = (pd.words, pd.nbits, pd.zflag, pd.dst_cap)
     a = decode_cu.decode_tokens(*dargs, **kw)
     b = decode_cu.decode_tokens(*dargs, **kw, _chunk=twin)
     torch.cuda.synchronize()
     err = max(err, compare_runs(a, b, "dictionary"))
     dst = a[1]["dst_pos"].cpu().numpy()
-    out = host.native.native_resolve_tokens(
+    out = native.native_resolve_tokens(
         a[0][: a[1]["tok_rows"]].T.contiguous().cpu().numpy().view(np.uint32),
         pd.words, dst, 4096, d)
     if a[1]["status"][0] != 0 or out[0, : dst[0]].tobytes() != dp:
@@ -189,7 +217,249 @@ def phase_big_chunk(decode_cu, ib, packed):
                              f"differ (max {err})")
     times = [run(decode_cu.decode_chunk)[1] for _ in range(5)]
     states = torch.bincount(kern[1][0], minlength=14).tolist()
-    return err, float(np.median(times)), plain_ms, times, states
+
+    # the least time the card could take for this chunk's work: the input
+    # bits these lanes consumed, every state row, lens word and table read
+    # once, state, lens and tokens written once; and the steps that did
+    # work (a primary token slot was filled) at OPS_PER_STEP operations
+    tok, stp, _ = kern
+    R = decode_cu.R_BITPOS
+    in_bytes = int((stp[R].long() - inputs[0][R].long()).sum()) // 8
+    moved = (in_bytes + tok.numel() * 4
+             + 2 * 4 * (inputs[0].numel() + inputs[1].numel())
+             + 4 * sum(t.numel() for t in inputs[2:]))
+    live_steps = int((tok[0::2] != 0).sum())
+    bound = roofline(moved, live_steps * DECODE_OPS_PER_STEP)
+    return (err, float(np.median(times)), plain_ms, times, states, bound,
+            (moved, live_steps))
+
+
+def roofline(n_bytes: int, n_ops: int):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the ALU rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ALU_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms(fn, reps: int = 5):
+    """Median device time of ``fn`` over ``reps`` runs, after one warm-up."""
+    fn()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return float(np.median(times)), times
+
+
+def check_adler(ck, data, lengths, what) -> int:
+    """Kernel against plain version on the card, and each lane against
+    zlib.adler32 of the same bytes.  Returns the max abs difference."""
+    got = ck.adler32_batch(data, lengths)
+    ref = ck.adler32_batch_ref(data, lengths)
+    torch.cuda.synchronize()
+    err = max_abs_diff([(got, ref)])
+    if err:
+        raise AssertionError(f"adler32 {what}: kernel and plain version "
+                             f"differ (max {err})")
+    host = data.cpu().numpy()
+    lens = lengths.clamp(0, data.shape[1]).cpu().numpy()
+    for i, v in enumerate(got.cpu().tolist()):
+        want = zlib.adler32(host[i, : lens[i]].tobytes())
+        if v != want:
+            raise AssertionError(f"adler32 {what} lane {i}: {v:#x} vs zlib "
+                                 f"{want:#x}")
+    return err
+
+
+def phase_adler_small(ck):
+    """5a: lengths 0, 1, 2, around the TPU kernel's 3072-byte slab, C and
+    past C (clipped); all-0xFF rows (the largest sums); a C that is no
+    multiple of 16; rows sliced out of a wider buffer at odd offsets."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(5)
+    err = 0
+    for C in (6144, 6001):
+        lens = [0, 1, 2, 15, 16, 17, 3071, 3072, 3073, C - 1, C, C + 7,
+                C, C]
+        data = torch.randint(0, 256, (len(lens), C), dtype=torch.uint8,
+                             generator=g)
+        data[-2:] = 0xFF
+        lens[-1] = C // 2
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        err = max(err, check_adler(ck, data.to(dev), lengths, f"C={C}"))
+        # the same rows inside a wider buffer: row starts at 3, 3 + 6211,
+        # ... are not 16-byte aligned, and the row stride is not C
+        wide = torch.zeros((len(lens), C + 67), dtype=torch.uint8, device=dev)
+        wide[:, 3:3 + C] = data.to(dev)
+        err = max(err, check_adler(ck, wide[:, 3:3 + C], lengths,
+                                   f"C={C} sliced"))
+    # values >= 2**31 must survive the trip as u32
+    hi = ck.adler32_batch(torch.full((1, 4096), 0xFF, dtype=torch.uint8,
+                                     device=dev),
+                          torch.tensor([4096], device=dev))
+    if int(hi[0]) != zlib.adler32(b"\xff" * 4096) or int(hi[0]) < 2 ** 31:
+        raise AssertionError(f"adler32 of 4096 x 0xFF: {int(hi[0]):#x}")
+    return err
+
+
+def phase_adler_full(ck, payloads):
+    """5b: the main-path shape, the corpus's payloads as rows."""
+    dev = torch.device("cuda")
+    host = np.zeros((N_STREAMS, BLOCK), np.uint8)
+    lens = np.zeros(N_STREAMS, np.int32)
+    for i, p in enumerate(payloads):
+        host[i, : len(p)] = np.frombuffer(p, np.uint8)
+        lens[i] = len(p)
+    data = torch.from_numpy(host).to(dev)
+    lengths = torch.from_numpy(lens).to(dev)
+    got = ck.adler32_batch(data, lengths)
+    ref = ck.adler32_batch_ref(data, lengths)
+    torch.cuda.synchronize()
+    err = max_abs_diff([(got, ref)])
+    want = [zlib.adler32(p) for p in payloads]
+    if err or got.cpu().tolist() != want:
+        raise AssertionError(f"adler32 [{N_STREAMS}, {BLOCK}]: kernel, plain "
+                             f"version and zlib disagree (max {err})")
+    ms, times = cuda_ms(lambda: ck.adler32_batch(data, lengths))
+    plain_ms, _ = cuda_ms(lambda: ck.adler32_batch_ref(data, lengths), reps=3)
+    # each byte of a lane read once, lengths read and checksums written;
+    # per byte one add for sum(d) and a multiply-add for sum(i*d)
+    n = int(lens.sum())
+    bound = roofline(n + 8 * N_STREAMS, 3 * n)
+    return err, ms, plain_ms, times, bound, n
+
+
+def phase_device_resident(dt, metrics, decode_cu, checksums_cu, streams,
+                          payloads, flags):
+    """6: device_inflate(resolve="device") at full width."""
+    decode_cu.launches = 0
+    checksums_cu.launches = 0
+    m0 = metrics.snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results, outputs, stats = dt.device_inflate(
+        streams, flags, dst_capacities=BLOCK, resolve="device")
+    wall = time.perf_counter() - t0
+    launches = (decode_cu.launches, checksums_cu.launches)
+    m1 = metrics.snapshot()
+    bad = [i for i, (r, o) in enumerate(zip(results, outputs))
+           if r != 0 or o != payloads[i]]
+    if bad:
+        raise AssertionError(f"device-resident path: {len(bad)} lanes "
+                             f"wrong, first {bad[:5]}")
+    if stats["host_fallbacks"]:
+        raise AssertionError(f"device-resident path: host fallbacks "
+                             f"{stats['host_fallbacks'][:5]}")
+    if min(launches) <= 0:
+        raise AssertionError(f"device-resident path: (decode_chunk, "
+                             f"adler32_batch) launches {launches}")
+    if m1.get("token_fetch_bytes", 0) != m0.get("token_fetch_bytes", 0):
+        raise AssertionError("device-resident path fetched tokens")
+
+    # one trailer corrupted, one cut: ERR and UNFINISHED, the rest OK
+    broken = list(streams)
+    broken[5] = streams[5][:-1] + bytes([streams[5][-1] ^ 0x40])
+    broken[77] = streams[77][:-2]
+    results, outputs, _ = dt.device_inflate(
+        broken, flags, dst_capacities=BLOCK, resolve="device")
+    want = [0] * N_STREAMS
+    want[5], want[77] = -1, 2
+    if [int(r) for r in results] != want:
+        got = {i: int(r) for i, r in enumerate(results) if int(r) != 0}
+        raise AssertionError(f"bad trailers: non-OK lanes {got}, expected "
+                             f"{{5: -1, 77: 2}}")
+    if any(o != p for o, p in zip(outputs, payloads)):
+        raise AssertionError("bad trailers: output bytes changed")
+    return wall, launches
+
+
+def phase_resolve_alone(decode_cu, resolve, pack, streams, payloads):
+    """The device resolver's own time and peak memory on the full batch."""
+    dev = torch.device("cuda")
+    p = pack.pack_streams(streams, 1, BLOCK)
+    words = torch.from_numpy(p.words.view(np.int32)).to(dev)
+    from defl_tpu_torch.ops.inflate_batch import step_budget
+
+    tokens, st = decode_cu.decode_tokens(words, p.nbits, p.zflag, p.dst_cap,
+                                         T=step_budget(BLOCK), K=CHUNK_K)
+    toks = tokens[: st["tok_rows"]]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = resolve.resolve_tokens(toks, words, st["dst_pos"], C=BLOCK)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+    host = out.cpu().numpy()
+    dst = st["dst_pos"].cpu().numpy()
+    wrong = sum(host[i, : dst[i]].tobytes() != payloads[i]
+                for i in range(N_STREAMS))
+    if wrong or host[0, dst[0]:].any():
+        raise AssertionError(f"device resolver: {wrong} lanes wrong")
+    return times, peak, base, toks.numel() * 4
+
+
+def phase_stream_session(dt, streams, payloads, resolve):
+    """7: incremental feeds on the card.  The decoder stops at the final
+    block's end, so a finished lane's input_pos is its stream's length
+    less the 4-byte trailer."""
+    n = SESSION_LANES
+    zs, pays = streams[:n], payloads[:n]
+    sess = dt.DeviceInflateSession(n, BLOCK, chunk_steps=CHUNK_K,
+                                   resolve=resolve)
+    cuts = (0.07, 0.31, 0.78, 1.0)
+    t0 = time.perf_counter()
+    prev = [0] * n
+    feeds = 0
+    for c in cuts:
+        ends = [len(s) if c == 1.0 else int(len(s) * c) for s in zs]
+        res = sess.feed([s[a:b] for s, a, b in zip(zs, prev, ends)])
+        prev = ends
+        feeds += 1
+    while any(r == 2 for r in res):
+        if feeds > 40:
+            raise AssertionError("session: lanes still UNFINISHED after 40 "
+                                 "feeds")
+        res = sess.feed([b""] * n)
+        feeds += 1
+    wall = time.perf_counter() - t0
+    res, outs = sess.outputs()
+    if any(r != 0 for r in res) or outs != pays:
+        raise AssertionError(f"session({resolve}): wrong statuses or bytes")
+    pos = [sess.input_pos(i) for i in range(n)]
+    if pos != [len(s) - 4 for s in zs]:
+        raise AssertionError(f"session({resolve}): input_pos off")
+
+    # EFULL -> resize_output -> resume
+    m = 64
+    small = dt.DeviceInflateSession(m, 4096, chunk_steps=CHUNK_K,
+                                    resolve=resolve)
+    res = small.feed(zs[:m])
+    for _ in range(40):
+        if all(r != 2 for r in res):
+            break
+        res = small.feed([b""] * m)
+    if any(r != -105 for r in res):
+        raise AssertionError(f"session({resolve}): expected EFULL at a "
+                             f"4096-byte capacity, got {set(res)}")
+    small.resize_output(BLOCK)
+    for _ in range(40):
+        res = small.feed([b""] * m)
+        if all(r != 2 for r in res):
+            break
+    res, outs = small.outputs()
+    if any(r != 0 for r in res) or outs != pays[:m]:
+        raise AssertionError(f"session({resolve}): EFULL resume went wrong")
+    return wall, feeds
 
 
 def main() -> int:
@@ -198,34 +468,43 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
 
-    import defl_tpu_torch
-    from defl_tpu_torch import host
+    import defl_tpu_torch as dt
+    from defl_tpu_torch import metrics
+    from defl_tpu_torch.corpus import make_silesia_like
+    from defl_tpu_torch.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB
+    from defl_tpu_torch.ops import checksums as ck
     from defl_tpu_torch.ops import inflate_batch as ib
-    from defl_tpu_torch.ops.cuda import build, decode_cu
+    from defl_tpu_torch.ops import resolve
+    from defl_tpu_torch.ops.cuda import build, checksums_cu, decode_cu
+    from defl_tpu_torch.runtime import native, pack
 
-    # ---- 1. device ----
+    # ---- 1. device, and the three builds started together ----
     smi = nvidia_smi()
     log(f"[1] card: {smi}")
     log(f"[1] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    build.load()
-    log(f"[1] decode kernel: built in {build.build_seconds:.2f} s "
-        f"(load {time.perf_counter() - t0:.2f} s), {build.lib_path()}")
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        host_build = ex.submit(native.load)
+        build.load()
+        host_build.result()
+    log(f"[1] builds: nvcc (decode_chunk.cu, adler32_batch.cu) "
+        f"{build.build_seconds:.2f} s, g++ (defl_host.cc) "
+        f"{native.build_seconds:.2f} s, together "
+        f"{time.perf_counter() - t0:.2f} s; {build.lib_path()}, "
+        f"{native.lib_path()}")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[1]   ptxas: {line.strip()}")
-    if not host.native.available():
-        raise RuntimeError("libdefl_host (the host resolver) did not build")
 
     # ---- 2a. small matrix ----
-    err_small = phase_small_matrix(decode_cu, ib, host)
+    err_small = phase_small_matrix(decode_cu, ib, pack, native)
     log(f"[2a] small matrix: kernel == twin bit for bit, bytes OK "
         f"(max_abs_err {err_small})")
 
-    # ---- corpus: bench.py's own (bench.py:182-191) ----
+    # ---- corpus: the bench's own, 8192 zlib-6 streams x 64 KiB ----
     t0 = time.perf_counter()
-    payloads = host.make_silesia_like(N_STREAMS * BLOCK, BLOCK)[:N_STREAMS]
+    payloads = make_silesia_like(N_STREAMS * BLOCK, BLOCK)[:N_STREAMS]
     cache = {}
     streams = [cache.setdefault(id(p), zlib.compress(p, 6)) for p in payloads]
     raw = sum(len(p) for p in payloads)
@@ -234,24 +513,27 @@ def main() -> int:
         f"{comp} B, made in {time.perf_counter() - t0:.1f} s")
 
     # ---- 2b. one main-path chunk ----
-    packed = host.pack_streams(streams, 1, BLOCK)
-    err_big, ms, plain_ms, times, states = phase_big_chunk(decode_cu, ib,
-                                                           packed)
+    packed = pack.pack_streams(streams, 1, BLOCK)
+    (err_big, ms, plain_ms, times, states, (dec_bound, dec_by),
+     (moved, live_steps)) = phase_big_chunk(decode_cu, ib, packed)
     log(f"[2b] chunk N={N_STREAMS} K={CHUNK_K}: kernel == twin bit for bit; "
         f"kernel {ms:.4f} ms (median of {times}), twin {plain_ms:.1f} ms; "
+        f"bound {dec_bound:.4f} ms by {dec_by} ({moved} B moved, "
+        f"{live_steps} working steps x {DECODE_OPS_PER_STEP} operations); "
         f"lane states after it {states}")
     del packed
 
     # ---- 3. the main path, once ----
-    m0 = host.metrics.snapshot()
+    m0 = metrics.snapshot()
     decode_cu.launches = 0
+    checksums_cu.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results, outputs = defl_tpu_torch.inflate_batch(
+    results, outputs = dt.inflate_batch(
         streams, backend="device", dst_capacities=BLOCK)
     wall = time.perf_counter() - t0
     launches = decode_cu.launches
-    m1 = host.metrics.snapshot()
+    m1 = metrics.snapshot()
     fallbacks = m1.get("host_fallback_lanes", 0) - m0.get(
         "host_fallback_lanes", 0)
     bad = [i for i, (r, o) in enumerate(zip(results, outputs))
@@ -268,6 +550,7 @@ def main() -> int:
         f"0 host fallbacks, {launches} decode_chunk launches, "
         f"{fetched} token bytes fetched; wall {wall:.3f} s = "
         f"{raw / wall / 1e9:.4f} GB/s")
+    del results, outputs
 
     # ---- 4. pipeline over two distinct batches ----
     B = 2
@@ -280,11 +563,10 @@ def main() -> int:
                     for k in range(len(status)))
         return ok, wrong
 
-    f0 = host.metrics.snapshot().get("token_fetch_bytes", 0)
+    f0 = metrics.snapshot().get("token_fetch_bytes", 0)
     l0 = decode_cu.launches
-    per_batch, pwall = defl_tpu_torch.pipeline_inflate(batches, BLOCK,
-                                                       sink=sink)
-    fetched = host.metrics.snapshot()["token_fetch_bytes"] - f0
+    per_batch, pwall = dt.pipeline_inflate(batches, BLOCK, sink=sink)
+    fetched = metrics.snapshot()["token_fetch_bytes"] - f0
     if any(v != (N_STREAMS, 0) for v in per_batch):
         raise AssertionError(f"pipeline: (ok, wrong) per batch {per_batch}")
     if decode_cu.launches <= l0:
@@ -293,13 +575,64 @@ def main() -> int:
     log(f"[4] pipeline_inflate: {B} batches, every lane OK and byte-equal; "
         f"wall {pwall:.3f} s, pipeline_wall_GBps "
         f"{raw * B / pwall / 1e9:.4f}, token fetch {fetched // B} B/batch")
+    del batches, pays_rot, per_batch
+    torch.cuda.empty_cache()
+
+    # ---- 5. the adler32 kernel against its plain version ----
+    err_a_small = phase_adler_small(ck)
+    log(f"[5a] adler32 small matrix: kernel == plain version == zlib "
+        f"(max_abs_err {err_a_small})")
+    (err_a_full, a_ms, a_plain_ms, a_times, (a_bound, a_by),
+     a_bytes) = phase_adler_full(ck, payloads)
+    log(f"[5b] adler32 [{N_STREAMS}, {BLOCK}]: kernel == plain version == "
+        f"zlib; kernel {a_ms:.4f} ms (median of {a_times}) = "
+        f"{a_bytes / a_ms / 1e6:.1f} GB/s, plain version {a_plain_ms:.2f} "
+        f"ms; bound {a_bound:.4f} ms by {a_by} ({a_bytes} B of lanes)")
+    torch.cuda.empty_cache()
+
+    # ---- 6. the device-resident inflate at full width ----
+    flags = FLAG_ZLIB | FLAG_VERIFY_ADLER32
+    dwall, (dec_l6, adler_l6) = phase_device_resident(
+        dt, metrics, decode_cu, checksums_cu, streams, payloads, flags)
+    log(f"[6] device_inflate(resolve='device', verify adler32): "
+        f"{N_STREAMS} lanes OK and byte-equal, 0 host fallbacks, "
+        f"{dec_l6} decode_chunk and {adler_l6} adler32_batch launches, no "
+        f"token fetched; bad trailers -> ERR and UNFINISHED; wall "
+        f"{dwall:.3f} s = {raw / dwall / 1e9:.4f} GB/s (host-resolve route "
+        f"in [3]: {wall:.3f} s)")
+    torch.cuda.empty_cache()
+    r_times, r_peak, r_base, tok_bytes = phase_resolve_alone(
+        decode_cu, resolve, pack, streams, payloads)
+    log(f"[6] resolve_tokens alone, {N_STREAMS} lanes x {BLOCK} B in slabs "
+        f"of {resolve.SLAB_ELEMS // (BLOCK + 1)} lanes: {r_times} s; peak "
+        f"device memory {r_peak} B, of which {r_base} B held before the "
+        f"call (token rows {tok_bytes} B)")
+    torch.cuda.empty_cache()
+
+    # ---- 7. the streaming session ----
+    for mode in ("host", "device"):
+        decode_cu.launches = 0
+        swall, feeds = phase_stream_session(dt, streams, payloads, mode)
+        if decode_cu.launches <= 0:
+            raise AssertionError("session never launched the decode kernel")
+        log(f"[7] DeviceInflateSession(resolve='{mode}'): {SESSION_LANES} "
+            f"lanes in {feeds} feeds OK and byte-equal, input_pos right, "
+            f"EFULL -> resize_output -> resume OK, {decode_cu.launches} "
+            f"decode_chunk launches; wall {swall:.3f} s")
 
     kernels = [{
         "name": "decode_chunk", "route": "cuda",
         "source": "defl_tpu_torch/csrc/decode_chunk.cu",
         "replaces": "defl_tpu/ops/pallas/decode_pl.py:663",
         "launches": launches, "max_abs_err": max(err_small, err_big),
-        "ms": ms, "plain_ms": plain_ms}]
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": dec_bound,
+        "bound_by": dec_by, "library_ms": None}, {
+        "name": "adler32_batch", "route": "cuda",
+        "source": "defl_tpu_torch/csrc/adler32_batch.cu",
+        "replaces": "defl_tpu/ops/pallas/checksums_pl.py:53",
+        "launches": adler_l6, "max_abs_err": max(err_a_small, err_a_full),
+        "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound,
+        "bound_by": a_by, "library_ms": None}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

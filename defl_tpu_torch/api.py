@@ -1,12 +1,12 @@
 """User-facing batch entry of the port (counterpart of ``defl_tpu.api``).
 
 Only ``inflate_batch`` is ported so far; the one-shot and streaming API
-of ``defl_tpu.api`` runs on the host engines and needs no port.
+of ``defl_tpu.api`` runs on the host engines.
 """
 
 from __future__ import annotations
 
-from defl_tpu.errors import FLAG_ZLIB
+from defl_tpu_torch.errors import FLAG_ZLIB
 
 
 def inflate_batch(streams, flags: int = FLAG_ZLIB, backend: str = "auto",
@@ -18,8 +18,10 @@ def inflate_batch(streams, flags: int = FLAG_ZLIB, backend: str = "auto",
       - "host":   per-stream host engine
       - "device": batched lockstep decode on ``device`` (CUDA by default,
                   which raises without a card; "cpu" runs the plain twin)
-      - "auto":   the device for batches of 8 or more when ``device`` is
-                  CUDA and a card is present, the host otherwise
+      - "auto":   decided by the batch alone: 8 or more streams, none
+                  over the per-lane packing limit, take the device (and
+                  raise like "device" when ``device`` is CUDA and there
+                  is no card); smaller batches take the host
 
     Returns (results, outputs): a list of Result and a list of bytes.
     """

@@ -7,7 +7,9 @@ On bench.py's corpus (``make_silesia_like``, zlib level 6) it measures,
 with a device sync after each part:
 
 - the stages of one ``device_inflate`` batch, ``reps`` times: pack,
-  upload, decode, token fetch, host resolve, per-lane ``bytes``;
+  upload, decode, token fetch, host resolve, per-lane ``bytes``; and
+  beside them the device-resident route's pass 2 on the same tokens:
+  device resolve, the adler32 kernel, and the output's copy to the host;
 - inside one decode, the chunk loop's parts summed over its chunks: the
   gate sync, the table builds, the kernel-input repack, the kernel and
   the state unpack.  The loop is ``decode_cu.decode_tokens`` itself, with
@@ -25,6 +27,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import subprocess
 import sys
 import time
 import zlib
@@ -32,9 +35,13 @@ import zlib
 import numpy as np
 import torch
 
-from defl_tpu_torch.host import make_silesia_like, native, pack_streams
+from defl_tpu_torch.corpus import make_silesia_like
+from defl_tpu_torch.runtime import native
+from defl_tpu_torch.runtime.pack import pack_streams
 from defl_tpu_torch.ops import inflate_batch as ib
+from defl_tpu_torch.ops.checksums import adler32_batch
 from defl_tpu_torch.ops.cuda import decode_cu
+from defl_tpu_torch.ops.resolve import resolve_tokens
 from defl_tpu_torch.runtime.session import _bucket, fetch_tokens
 
 
@@ -98,7 +105,21 @@ def stages(streams, payloads, block):
     dst_pos = st["dst_pos"].cpu().numpy()
     t["fetch"] = time.perf_counter() - t0
     t["fetch_bytes"] = toks.nbytes
-    del tokens
+    # the device-resident route's pass 2, on the same tokens
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out_dev = resolve_tokens(tokens[: st["tok_rows"]], args[0],
+                             st["dst_pos"], C=C)
+    torch.cuda.synchronize()
+    t["device_resolve"] = time.perf_counter() - t0
+    t["device_resolve_peak_bytes"] = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    sums = adler32_batch(out_dev, st["dst_pos"]).cpu().tolist()
+    t["device_adler32"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_host = out_dev.cpu().numpy()
+    t["device_output_copy"] = time.perf_counter() - t0
+    del tokens, out_dev
     t0 = time.perf_counter()
     out = native.native_resolve_tokens(toks, p.words, dst_pos, C)
     t["resolve"] = time.perf_counter() - t0
@@ -107,6 +128,12 @@ def stages(streams, payloads, block):
     t["bytes"] = time.perf_counter() - t0
     if outs != payloads or (st["status"] != 0).any():
         raise AssertionError("stage run decoded wrong bytes")
+    # (the host resolver may write past a lane's end: compare to dst_pos)
+    if any(out_host[i, : dst_pos[i]].tobytes() != x
+           for i, x in enumerate(payloads)) or \
+            sums != [zlib.adler32(x) for x in payloads]:
+        raise AssertionError("device resolve or adler32 disagree with the "
+                             "host route")
     return t, args, C
 
 
@@ -169,6 +196,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("breakdown: needs a CUDA card", file=sys.stderr)
         return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(f"card: {card}", flush=True)
     payloads, streams = corpus(a.streams, a.block)
     print(f"corpus: {a.streams} x {a.block} B, raw "
           f"{sum(map(len, payloads))} B", flush=True)
@@ -188,7 +220,8 @@ def main(argv=None) -> int:
           flush=True)
     for k in prof["top"]:
         print(f"  {k['count']:5d} x {k['s'] * 1e3:9.3f} ms  {k['name'][:70]}")
-    rec = {"streams": a.streams, "block": a.block, "stages": reps,
+    rec = {"card": card, "streams": a.streams, "block": a.block,
+           "stages": reps,
            "chunk_loop": split, "profiler": prof}
     if a.json:
         with open(a.json, "w") as f:

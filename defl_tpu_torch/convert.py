@@ -1,9 +1,14 @@
-"""Decoder carry conversion between the JAX package and the port.
+"""Decoder carry and session conversion between the JAX package and the port.
 
 A codec has no weights; what crosses between the two packages is the
 resumable decoder carry (≙ the reference's ``unz__stream_t``).  With
 these two functions a stream half-decoded by one package finishes in the
-other, and the two token buffers concatenate along axis 0.
+other, and the two token buffers concatenate along axis 0.  The two
+session functions do the same for a whole ``DeviceInflateSession`` (its
+carry, unconsumed input, output accumulator and positions), so a stream
+begun by one package's session is finished by the other's.  Neither
+imports the JAX package: a JAX session is read and written through its
+attributes, which the two classes share.
 
 - The port keeps the JAX carry's keys, minus the chunk input window
   (``win``, ``win_word``, ``rr``): its kernel reads the input directly.
@@ -55,3 +60,35 @@ def carry_to_numpy(carry: dict) -> dict[str, np.ndarray]:
     if "tok_rows" in carry:
         out["tok_rows"] = np.int32(carry["tok_rows"])
     return out
+
+
+def session_from_jax(src, *, resolve: str = "host", device="cuda"):
+    """A ``defl_tpu`` ``DeviceInflateSession`` -> a port session on
+    ``device`` that continues it: same lanes, budgets, unconsumed input,
+    output so far and decoder carry."""
+    from defl_tpu_torch.runtime.stream_device import DeviceInflateSession
+
+    s = DeviceInflateSession(src.n, src.out.shape[1], src.flags,
+                             src.dictionary, src.chunk_steps,
+                             src.feed_step_budget, resolve=resolve,
+                             device=device)
+    s.caps = np.array(src.caps, np.int32)
+    s.bufs = [bytearray(b) for b in src.bufs]
+    s.consumed = np.array(src.consumed, np.int64)
+    s.dst_pos = np.array(src.dst_pos, np.int64)
+    s.out = np.array(src.out, np.uint8)
+    if src.carry is not None:
+        s.carry = carry_from_jax(src.carry, s.device)
+    return s
+
+
+def session_into_jax(sess, dst) -> None:
+    """Copy a port session's state onto ``dst``, a ``defl_tpu``
+    ``DeviceInflateSession`` the caller made with the same arguments; its
+    carry arrives as NumPy arrays, which the JAX decoder takes."""
+    dst.caps = np.array(sess.caps, np.int32)
+    dst.bufs = [bytearray(b) for b in sess.bufs]
+    dst.consumed = np.array(sess.consumed, np.int64)
+    dst.dst_pos = np.array(sess.dst_pos, np.int64)
+    dst.out = np.array(sess.out, np.uint8)
+    dst.carry = None if sess.carry is None else carry_to_numpy(sess.carry)

@@ -2,7 +2,7 @@
 
 The sources under ``defl_tpu_torch/csrc/`` compile into one shared
 library with a plain C interface, loaded with ctypes (the pattern of
-``defl_tpu/runtime/native.py``).  The library is named by a hash of the
+``defl_tpu_torch/runtime/native.py``).  The library is named by a hash of the
 sources, so an edited source builds anew and a stale library is never
 loaded.  A failed build raises with nvcc's own messages.
 """
@@ -20,7 +20,7 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 _BUILD = os.path.join(_CSRC, "build")
-SOURCES = ("decode_chunk.cu",)
+SOURCES = ("decode_chunk.cu", "adler32_batch.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
@@ -55,8 +55,9 @@ def _build(path: str) -> None:
     global build_log, build_seconds
     os.makedirs(_BUILD, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+    # --threads 0 lets nvcc run independent compile steps in parallel
+    cmd = [_nvcc(), "--threads", "0", "-gencode", ARCH, "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
            *[os.path.join(_CSRC, s) for s in SOURCES]]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, capture_output=True, text=True)
@@ -78,9 +79,11 @@ def load():
         if not os.path.exists(path):
             _build(path)
         lib = ctypes.CDLL(path)
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.decode_chunk_launch.restype = i
         lib.decode_chunk_launch.argtypes = [p, p, p, i, p, p, p, p, p, i, i,
                                             i, p, i]
+        lib.adler32_batch_launch.restype = i
+        lib.adler32_batch_launch.argtypes = [p, ll, i, i, p, p, p, i]
         _lib = lib
         return _lib

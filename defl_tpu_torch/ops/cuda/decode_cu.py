@@ -34,8 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from defl_tpu import constants as C
-from defl_tpu.errors import Result
+from defl_tpu_torch import constants as C
+from defl_tpu_torch.errors import Result
 from defl_tpu_torch.ops import inflate_batch as ib
 from defl_tpu_torch.ops import tables
 from defl_tpu_torch.ops.bitio import (bitrev16, extract, i32_to_u32, peek32,

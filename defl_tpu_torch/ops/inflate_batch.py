@@ -20,9 +20,9 @@ from __future__ import annotations
 
 import torch
 
-from defl_tpu import constants as C
-from defl_tpu.core import huffman
-from defl_tpu.errors import Result
+from defl_tpu_torch import constants as C
+from defl_tpu_torch.core import huffman
+from defl_tpu_torch.errors import Result
 from defl_tpu_torch.ops import tables
 from defl_tpu_torch.ops.bitio import extract
 

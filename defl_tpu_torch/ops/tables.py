@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from defl_tpu.constants import MAX_CODE_LENGTH
+from defl_tpu_torch.constants import MAX_CODE_LENGTH
 
 # syms-bank layout: one bank serves all three alphabets, three 10-bit
 # symbols per u32 word (bases and widths are multiples of 3)

@@ -25,12 +25,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from defl_tpu.errors import FLAG_ZLIB, Result
-from defl_tpu_torch.host import native, pack_streams
+from defl_tpu_torch.errors import FLAG_ZLIB, Result
 from defl_tpu_torch.ops import inflate_batch as ib
 from defl_tpu_torch.ops.cuda import decode_cu
-from defl_tpu_torch.runtime.session import (_need_native, _pick_decoder,
-                                            fetch_tokens)
+from defl_tpu_torch.runtime import native
+from defl_tpu_torch.runtime.pack import pack_streams
+from defl_tpu_torch.runtime.session import _pick_decoder, fetch_tokens
 
 
 def pipeline_inflate(stream_batches, dst_capacity: int, flags=FLAG_ZLIB,
@@ -58,7 +58,7 @@ def pipeline_inflate(stream_batches, dst_capacity: int, flags=FLAG_ZLIB,
     else (status int32 [N], out uint8 [N, C], dst_pos int32 [N]).
     """
     dev = _pick_decoder(device)
-    _need_native()
+    native.load()
     zf = flags & FLAG_ZLIB
     C = int(dst_capacity)
     T = ib.step_budget(C)

@@ -1,4 +1,4 @@
-"""Batch codec sessions: pack -> decode_tokens -> host resolve.
+"""Batch codec sessions: pack -> decode_tokens -> resolve (host or device).
 
 Counterpart of ``defl_tpu/runtime/session.py`` for the batched inflate.
 Each lane carries its own status, so a malformed stream never poisons
@@ -8,9 +8,12 @@ of empty blocks) are retried on the host engine.
 Differences from the JAX session:
 - ``device`` is explicit: CUDA by default, which raises without a card;
   the CPU (the kernel's plain twin) runs only when asked for.
-- Pass 2 is the C++ resolver only: ``resolve="device"`` (ops/resolve.py)
-  is not ported yet, and a missing native library raises instead of
-  switching resolvers.
+- The caller picks pass 2: ``resolve="host"`` (the C++ resolver, the
+  default) or ``resolve="device"`` (ops/resolve.py, with the trailer
+  check by the adler32 kernel).  A host engine that does not build raises
+  instead of switching resolvers.
+- ``backend="auto"`` decides by the batch alone; a batch it sends to the
+  device raises when ``device`` is CUDA and there is no card.
 - No N/W padding to shape buckets: they exist to bound XLA recompiles.
   Capacity keeps its bucket so that T = step_budget(C) equals JAX's.
 """
@@ -20,11 +23,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from defl_tpu.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
-from defl_tpu_torch.host import (MAX_STREAM_BYTES, inflate_oracle, metrics,
-                                 native, pack_streams)
+from defl_tpu_torch.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
+from defl_tpu_torch import metrics
+from defl_tpu_torch.core.oracle import inflate_oracle
 from defl_tpu_torch.ops import inflate_batch as ib
-from defl_tpu_torch.ops.cuda import decode_cu
+from defl_tpu_torch.ops.checksums import adler32_batch
+from defl_tpu_torch.ops.cuda import checksums_cu, decode_cu
+from defl_tpu_torch.ops.resolve import resolve_tokens
+from defl_tpu_torch.runtime import native
+from defl_tpu_torch.runtime.pack import (MAX_STREAM_BYTES, pack_dictionary,
+                                         pack_streams)
 
 
 def _bucket(x: int) -> int:
@@ -54,13 +62,6 @@ def _pick_decoder(device) -> torch.device:
     return dev
 
 
-def _need_native():
-    if not native.available():
-        raise RuntimeError("the host resolver (libdefl_host, built with g++ "
-                           "from defl_tpu/native/defl_host.cc) is "
-                           "unavailable")
-
-
 def fetch_tokens(parts) -> np.ndarray:
     """Token parts [(tokbuf, tok_rows), ...] -> uint32 [N, rows] on the
     host, lane-major as the resolver wants it.  Exactly the occupied rows
@@ -84,14 +85,20 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
                    resolve: str = "host", device="cuda"):
     """Batched device decode.  Returns (results, outputs, stats dict).
 
-    Pass 1 (bitstream -> tokens) runs on ``device``; pass 2 ships the
-    occupied token rows to the multithreaded C++ resolver.
+    Pass 1 (bitstream -> tokens) runs on ``device``.  Pass 2:
+    ``resolve="host"`` ships the occupied token rows to the multithreaded
+    C++ resolver; ``resolve="device"`` resolves on ``device``
+    (ops/resolve.py), so the tokens never leave it, and with
+    FLAG_VERIFY_ADLER32 the zlib trailers are checked against checksums
+    computed there too (ops/checksums.py): only the resolved bytes and
+    4 bytes per lane come back.
     """
-    if resolve != "host":
-        raise NotImplementedError("resolve='device' (ops/resolve.py) is not "
-                                  "ported yet")
+    if resolve not in ("host", "device"):
+        raise ValueError(f"resolve must be 'host' or 'device', got "
+                         f"{resolve!r}")
     dev = _pick_decoder(device)
-    _need_native()
+    if resolve == "host":
+        native.load()
 
     n_in = len(streams)
     if n_in == 0:
@@ -114,6 +121,7 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
     T = ib.step_budget(C)
     dict_len = len(bytes(dictionary)) if dictionary else 0
     launches0 = decode_cu.launches
+    adler0 = checksums_cu.launches
 
     as_dev = lambda a: torch.from_numpy(a).to(dev)
     words = as_dev(packed.words.view(np.int32))
@@ -145,13 +153,27 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
             tok_parts.append((tokens, st["tok_rows"]))
         caps = [int(c) for c in caps_np[:n_in]]
 
-    toks_nt = fetch_tokens(tok_parts)
-    meta = torch.stack([st["dst_pos"], st["status"], st["bitpos"]]).cpu()
-    dst_pos, status, bitpos = (m.numpy() for m in meta)
-    out_np = native.native_resolve_tokens(toks_nt, packed.words, dst_pos, C,
-                                          dictionary)
-
     verify = bool(flags & FLAG_VERIFY_ADLER32) and bool(zf)
+    adler_dev = None
+    if resolve == "host":
+        toks_nt = fetch_tokens(tok_parts)
+        meta = torch.stack([st["dst_pos"], st["status"], st["bitpos"]]).cpu()
+        dst_pos, status, bitpos = (m.numpy() for m in meta)
+        out_np = native.native_resolve_tokens(toks_nt, packed.words, dst_pos,
+                                              C, dictionary)
+    else:
+        toks = [t[:rows] for t, rows in tok_parts]
+        out = resolve_tokens(
+            toks[0] if len(toks) == 1 else torch.cat(toks, 0), words,
+            st["dst_pos"], C=C, dict_len=dict_len,
+            dict_words=pack_dictionary(dictionary)[0] if dictionary else None)
+        if verify:
+            # trailers are checked against checksums taken on the device:
+            # the outputs do not ship to the host for that
+            adler_dev = adler32_batch(out, st["dst_pos"]).cpu().numpy()
+        meta = torch.stack([st["dst_pos"], st["status"], st["bitpos"]]).cpu()
+        dst_pos, status, bitpos = (m.numpy() for m in meta)
+        out_np = out.cpu().numpy()
     in_bytes = packed.words.view(np.uint8)
 
     # Lanes needing a host-engine pass: step-budget exhaustion only
@@ -185,19 +207,23 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
             stored = int.from_bytes(in_bytes[i, tp: tp + 4], "big")
             if tp + 4 > packed.nbits[i] // 8:
                 r = Result.UNFINISHED
-            elif stored != native.native_adler32(o):
+            elif stored != (int(adler_dev[i]) if adler_dev is not None
+                            else native.native_adler32(o)):
                 r = Result.ERR
         results.append(r)
         outputs.append(o)
     launched = decode_cu.launches - launches0
+    adler_launched = checksums_cu.launches - adler0
     stats = {"bitpos": bitpos, "dst_pos": dst_pos, "T": T, "C": C,
-             "host_fallbacks": fb_idx, "decode_chunk_launches": launched}
+             "host_fallbacks": fb_idx, "decode_chunk_launches": launched,
+             "adler32_batch_launches": adler_launched}
     metrics.inc("device_inflate_batches")
     metrics.inc("device_inflate_lanes", n_in)
     metrics.inc("device_inflate_bytes_out",
                 int(sum(len(o) for o in outputs)))
     metrics.inc("host_fallback_lanes", len(fb_idx))
     metrics.inc("decode_chunk_launches", launched)
+    metrics.inc("adler32_batch_launches", adler_launched)
     return results, outputs, stats
 
 
@@ -234,9 +260,10 @@ def batch_inflate(streams, flags=FLAG_ZLIB, backend="auto", dictionary=None,
                   dst_capacities=None, device="cuda"):
     """Public batch decode entry (see api.inflate_batch).
 
-    ``auto`` takes the device only when ``device`` is CUDA and a card is
-    there (the JAX session sends ``auto`` batches to its default backend
-    whatever it is); otherwise it decodes on the host.
+    ``auto`` decides by the batch alone, as the JAX session does: 8 or
+    more streams, none over ``MAX_STREAM_BYTES``, go to ``device``.  With
+    ``device="cuda"`` and no card that raises; a caller who wants the host
+    says ``backend="host"`` or ``device="cpu"``.
     """
     n = len(streams)
     sizes = [len(s) if isinstance(s, (bytes, bytearray)) else
@@ -247,9 +274,7 @@ def batch_inflate(streams, flags=FLAG_ZLIB, backend="auto", dictionary=None,
             f"streams over {MAX_STREAM_BYTES} bytes take runtime/large.py's "
             "device route, which is not ported yet")
     use_device = backend == "device" or (
-        backend == "auto" and n >= 8 and not big
-        and torch.device(device).type == "cuda"
-        and torch.cuda.is_available() and native.available())
+        backend == "auto" and n >= 8 and not big)
     if use_device:
         results, outputs, _ = device_inflate(
             streams, flags, dictionary, dst_capacities, device=device)

@@ -1,12 +1,15 @@
-"""The CUDA decode kernel against its plain PyTorch twin, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+decode kernel, the adler32 kernel, and the paths that run them
+(``device_inflate`` with either resolver, the streaming session).
 
 Marked ``needs_cuda``: each test skips when ``torch.cuda.is_available()``
 is False (decided inside a fixture, never at import).  On a machine with
 a card, run ``python -m pytest tests/test_torch_cuda.py -q`` (add
 ``--noconftest`` where jax is not installed: tests/conftest.py imports
-it, and this file needs nothing from it).  The kernel
-and the twin read bits straight from the packed input, so every
-comparison is exact: tokens, state rows and lens.
+it, and this file needs nothing from it).  The decode
+kernel and its twin read bits straight from the packed input, so every
+comparison is exact: tokens, state rows and lens; a checksum is exact by
+nature.
 """
 
 import zlib
@@ -15,9 +18,14 @@ import numpy as np
 import pytest
 import torch
 
-from defl_tpu_torch.host import pack_dictionary, pack_streams
+from defl_tpu_torch import DeviceInflateSession, metrics
+from defl_tpu_torch.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB
+from defl_tpu_torch.ops import checksums as ck
 from defl_tpu_torch.ops import inflate_batch as ib
-from defl_tpu_torch.ops.cuda import decode_cu
+from defl_tpu_torch.ops.cuda import checksums_cu, decode_cu
+from defl_tpu_torch.ops import resolve as tres
+from defl_tpu_torch.ops.resolve import resolve_tokens
+from defl_tpu_torch.runtime.pack import pack_dictionary, pack_streams
 from defl_tpu_torch.runtime.session import device_inflate, fetch_tokens
 
 pytestmark = pytest.mark.needs_cuda
@@ -171,3 +179,151 @@ def test_concurrent_device_inflate_on_the_card():
         got = [f.result()[:2] for f in futs]
     assert [r for r, _ in got] == [[Result.OK] * 64] * len(batches)
     assert [o for _, o in got] == pays
+
+
+# ---- the adler32 kernel ------------------------------------------------------
+
+def _adler_matrix(C):
+    g = torch.Generator().manual_seed(C)
+    lens = [0, 1, 2, 15, 16, 17, 3071, 3072, 3073, C - 1, C, C + 9, C, C // 2]
+    data = torch.randint(0, 256, (len(lens), C), dtype=torch.uint8,
+                         generator=g)
+    data[-2:] = 0xFF
+    return data, torch.tensor(lens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("C", [6144, 6001, 5, 70001])
+@pytest.mark.parametrize("sliced", [False, True])
+def test_adler32_kernel_matches_plain_version_and_zlib(C, sliced):
+    data, lens = _adler_matrix(C)
+    dev = data.cuda()
+    if sliced:      # rows inside a wider buffer: unaligned, strided
+        wide = torch.zeros((data.shape[0], C + 67), dtype=torch.uint8,
+                           device="cuda")
+        wide[:, 3:3 + C] = dev
+        dev = wide[:, 3:3 + C]
+    launches = checksums_cu.launches
+    got = ck.adler32_batch(dev, lens.cuda())
+    assert checksums_cu.launches == launches + 1
+    ref = ck.adler32_batch_ref(dev, lens.cuda())
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and torch.equal(got, ref)
+    host = data.numpy()
+    want = [zlib.adler32(host[i, : min(max(int(n), 0), C)].tobytes())
+            for i, n in enumerate(lens)]
+    assert got.cpu().tolist() == want
+
+
+def test_adler32_cuda_call_never_reaches_the_plain_version(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran for CUDA tensors")
+
+    monkeypatch.setattr(ck, "adler32_batch_ref", boom)
+    data, lens = _adler_matrix(6144)
+    got = ck.adler32_batch(data.cuda(), lens.cuda())
+    assert int(got[0]) == 1
+
+
+@pytest.mark.parametrize("fault", ["dtype", "lengths_dtype", "lengths_shape",
+                                   "column_stride"])
+def test_adler32_wrapper_refuses(fault):
+    data = torch.zeros((4, 64), dtype=torch.uint8, device="cuda")
+    lens = torch.zeros(4, dtype=torch.int32, device="cuda")
+    if fault == "dtype":
+        data = data.to(torch.int8)
+    elif fault == "lengths_dtype":
+        lens = lens.long()
+    elif fault == "lengths_shape":
+        lens = lens[:3]
+    else:
+        data = torch.zeros((4, 128), dtype=torch.uint8,
+                           device="cuda")[:, ::2]
+    with pytest.raises((TypeError, ValueError)):
+        checksums_cu.adler32_batch_cuda(data, lens)
+
+
+def test_adler32_launches_on_the_current_stream():
+    """No sync inside and no default-stream launch: on a side stream the
+    result is still right after that stream is waited for."""
+    data, lens = _adler_matrix(70001)
+    want = ck.adler32_batch_ref(data, lens)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        d, n = data.cuda(), lens.cuda()
+        got = ck.adler32_batch(d, n)
+    side.synchronize()
+    assert got.cpu().tolist() == want.tolist()
+
+
+# ---- the device-resident inflate and the session ---------------------------
+
+def _payload_batch(n=48):
+    rng = np.random.default_rng(21)
+    pays = []
+    for i in range(n):
+        unit = rng.integers(0, 256, 1 + (i * 7) % 300, dtype=np.uint8)
+        noise = rng.integers(0, 256, 200 + 13 * i, dtype=np.uint8)
+        pays.append((unit.tobytes() * 20 + noise.tobytes())[:6000])
+    return pays, [zlib.compress(p, 6 if i % 5 else 0)
+                  for i, p in enumerate(pays)]
+
+
+def test_resolve_tokens_on_the_card_matches_the_cpu(monkeypatch):
+    pays, zs = _payload_batch()
+    p = pack_streams(zs, 1, 8192)
+    tok, c = decode_cu.decode_tokens(p.words, p.nbits, p.zflag, p.dst_cap,
+                                     T=8192, device="cuda")
+    toks = tok[: c["tok_rows"]]
+    words = torch.from_numpy(p.words.view(np.int32)).cuda()
+    monkeypatch.setattr(tres, "SLAB_ELEMS", 5 * 8193)   # ten slabs
+    got = resolve_tokens(toks, words, c["dst_pos"], C=8192)
+    monkeypatch.undo()
+    want = resolve_tokens(toks.cpu(), words.cpu(), c["dst_pos"].cpu(), C=8192)
+    assert torch.equal(got.cpu(), want)
+    dst = c["dst_pos"].cpu().numpy()
+    assert [want[i, : dst[i]].numpy().tobytes()
+            for i in range(len(pays))] == pays
+
+
+def test_device_inflate_device_resolve_on_the_card():
+    pays, zs = _payload_batch()
+    flags = FLAG_ZLIB | FLAG_VERIFY_ADLER32
+    zs[3] = zs[3][:-1] + bytes([zs[3][-1] ^ 1])     # corrupted trailer
+    zs[9] = zs[9][:-3]                              # cut trailer
+    metrics.reset()
+    res, outs, st = device_inflate(zs, flags, dst_capacities=8192,
+                                   resolve="device")
+    want = [0] * len(pays)
+    want[3], want[9] = -1, 2
+    assert [int(r) for r in res] == want
+    assert outs == pays
+    assert st["decode_chunk_launches"] > 0
+    assert st["adler32_batch_launches"] == 1
+    assert "token_fetch_bytes" not in metrics.snapshot()
+    cpu = device_inflate(zs, flags, dst_capacities=8192, resolve="device",
+                         device="cpu")
+    host = device_inflate(zs, flags, dst_capacities=8192)
+    for other in (cpu, host):
+        assert (other[0], other[1]) == (res, outs)
+        np.testing.assert_array_equal(other[2]["bitpos"], st["bitpos"])
+
+
+@pytest.mark.parametrize("resolve", ["host", "device"])
+def test_session_on_the_card(resolve):
+    pays, zs = _payload_batch(16)
+    sess = DeviceInflateSession(16, 2048, resolve=resolve)
+    twin = DeviceInflateSession(16, 2048, resolve=resolve, device="cpu")
+    top = max(len(z) for z in zs)
+    for lo in range(0, top, 301):
+        chunk = [z[lo: lo + 301] for z in zs]
+        res = sess.feed(chunk)
+        assert res == twin.feed(chunk)
+    assert -105 in res and set(res) <= {-105, 0}
+    for s in (sess, twin):
+        s.resize_output(8192)
+    res = sess.feed([b""] * 16)
+    assert res == twin.feed([b""] * 16) and set(res) == {0}
+    assert sess.outputs()[1] == pays == twin.outputs()[1]
+    assert [sess.input_pos(i) for i in range(16)] == \
+        [len(z) - 4 for z in zs]
