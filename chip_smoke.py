@@ -5,15 +5,23 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit, torch/CUDA versions, and
-     the builds from csrc/, started together: nvcc for the two kernels
-     (decode_chunk.cu, adler32_batch.cu), g++ for the host engine
+     the builds from csrc/, started together: nvcc for the kernels
+     (decode_stream.cu, adler32_batch.cu), g++ for the host engine
      (defl_host.cc);
-  2. the kernel against its plain PyTorch twin, bit for bit, on the card:
-     (a) full decodes of a small matrix (dynamic, fixed, stored and raw
-     blocks, RLE, dist=2 chains, incompressible data, one byte, BTYPE=3,
-     truncation, EFULL then revive_carry resume, a dictionary stream);
-     (b) one chunk at the main-path shape, N=8192 lanes and K=512 steps,
-     with the kernel's and the twin's time for it;
+  2. the decode kernels against their plain PyTorch versions, exactly, on
+     the card: (a) full decodes of a small matrix (dynamic, fixed, stored
+     and raw blocks, RLE, dist=2 chains, incompressible data, one byte,
+     BTYPE=3, truncation, EFULL then revive_carry resume, a dictionary
+     stream): the stream kernel (one launch a call, tables built on the
+     card) against the chunk loop by decode_cu.compare_decodes, and the
+     chunk kernel against its twin slot for slot in that loop;
+     (b) one chunk at N=8192 lanes and K=512 steps, chunk kernel against
+     twin bit for bit, with both times;
+     (c) the whole batch, 8192 x 64 KiB, in one launch of the stream
+     kernel: its time by CUDA events (median of 5) beside its bound, all
+     lanes byte-equal to their payloads, and lanes of that launch from
+     the shortest through the median to the longest held against the
+     chunk loop by the comparator;
   3. the main path once: inflate_batch(backend="device") on bench.py's
      corpus, 8192 zlib-6 streams x 64 KiB; every lane OK and byte-equal,
      no host fallback, and the decode kernel launched;
@@ -61,11 +69,25 @@ SESSION_LANES = 1024
 # ceiling for the kernels' integer operations as well
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
-# operations of one working decode step, counted from csrc/decode_chunk.cu:
-# up to four canonical decodes (15 boundary compares and sums, a 16-bit
-# reversal, two table loads: ~50 each) and ~50 of window shifts, extra
-# bits and state updates
+# operations of one working step of the chunk kernel, counted from
+# csrc/decode_stream.cu (ChunkMem): up to four canonical decodes (15
+# boundary compares and sums, a 16-bit reversal, two table loads: ~50 each)
+# and ~50 of window shifts, extra bits and state updates
 DECODE_OPS_PER_STEP = 250
+# and of the stream kernel (StreamMem): up to four table lookups (~8 each),
+# two 64-bit windows out of the ring (~12 each), ~25 for the fields of a
+# match, ~40 of checks, token assembly and state updates; a build costs
+# ~12 operations a sorted symbol (count, place, pack) and ~6 for each of
+# the 1280 lookup entries it fills for a block's 320 symbols
+STREAM_OPS_PER_STEP = 120
+BUILD_OPS_PER_SYMBOL = 12 + 6 * 1280 // 320
+# lanes of the whole-batch launch that the plain version re-decodes, taken
+# evenly over the lanes ordered by the steps they took, the shortest, the
+# median and the longest among them: the twin pays 1-4 ms a step whatever
+# the lane count, so the run lasts as long as the batch's longest lane.
+# A short chunk keeps the steps a lane idles before its builds few.
+PLAIN_LANES = 64
+PLAIN_K = 128
 
 
 def log(*a):
@@ -90,14 +112,27 @@ def max_abs_diff(pairs) -> int:
 
 
 def compare_runs(a, b, what) -> int:
+    """Two chunk-loop runs slot for slot: tokens, carry, tok_rows."""
     (ta, ca), (tb, cb) = a, b
     if ca["tok_rows"] != cb["tok_rows"]:
         raise AssertionError(f"{what}: tok_rows {ca['tok_rows']} vs "
                              f"{cb['tok_rows']}")
     keys = [k for k in ca if k != "tok_rows"]
-    err = max_abs_diff([(ta, tb)] + [(ca[k], cb[k]) for k in keys])
+    rows = ca["tok_rows"]
+    err = max_abs_diff([(ta[:rows], tb[:rows])]
+                       + [(ca[k], cb[k]) for k in keys])
     if err:
         raise AssertionError(f"{what}: kernel and twin differ (max {err})")
+    return err
+
+
+def held_equal(decode_cu, a, b, what) -> int:
+    """Two complete decodes by the comparator: end state, tokens in order
+    and a resumable lane's tables; slots may differ."""
+    err = decode_cu.compare_decodes(a, b)
+    if err:
+        raise AssertionError(f"{what}: stream kernel and chunk loop differ "
+                             f"(max {err})")
     return err
 
 
@@ -123,21 +158,30 @@ def phase_small_matrix(decode_cu, ib, pack, native):
     err = 0
     runs = {}
     twin = decode_cu.decode_chunk_ref
-    for name, chunk in (("kernel", None), ("twin", twin)):
+    routes = (("stream", {}), ("kernel", {"_chunk": decode_cu.decode_chunk}),
+              ("twin", {"_chunk": twin}))
+    for name, kw in routes:
         t1, c1 = decode_cu.decode_tokens(*args, T=4096, K=64, device="cuda",
-                                         _chunk=chunk)
+                                         **kw)
         torch.cuda.synchronize()
         cap = torch.full((len(streams),), 8192, dtype=torch.int32,
                          device="cuda")
         t2, c2 = decode_cu.decode_tokens(
             p.words, p.nbits, p.zflag, cap, T=4096, K=64, device="cuda",
-            carry=ib.revive_carry(c1, new_cap=cap), _chunk=chunk)
+            carry=ib.revive_carry(c1, new_cap=cap), **kw)
         torch.cuda.synchronize()
+        if (c2["status"] == ib.STATUS_RUNNING).any():
+            raise AssertionError(f"small matrix ({name}): lanes still RUNNING")
         runs[name] = ((t1, c1), (t2, c2))
     for i in range(2):
         err = max(err, compare_runs(runs["kernel"][i], runs["twin"][i],
                                     f"small matrix part {i}"))
-    (t1, c1), (t2, c2) = runs["kernel"]
+    as_run = lambda r: ([(t, c["tok_rows"]) for t, c in r], r[-1][1])
+    err = max(err, held_equal(decode_cu, as_run(runs["stream"][:1]),
+                              as_run(runs["twin"][:1]), "small matrix"))
+    err = max(err, held_equal(decode_cu, as_run(runs["stream"]),
+                              as_run(runs["twin"]), "small matrix, resumed"))
+    (t1, c1), (t2, c2) = runs["stream"]
     st1 = c1["status"].cpu().numpy()
     if st1[2] != -105:
         raise AssertionError(f"lane 2 should hit EFULL first, got {st1[2]}")
@@ -166,8 +210,10 @@ def phase_small_matrix(decode_cu, ib, pack, native):
     dargs = (pd.words, pd.nbits, pd.zflag, pd.dst_cap)
     a = decode_cu.decode_tokens(*dargs, **kw)
     b = decode_cu.decode_tokens(*dargs, **kw, _chunk=twin)
+    k = decode_cu.decode_tokens(*dargs, **kw, _chunk=decode_cu.decode_chunk)
     torch.cuda.synchronize()
-    err = max(err, compare_runs(a, b, "dictionary"))
+    err = max(err, compare_runs(k, b, "dictionary"),
+              held_equal(decode_cu, a, b, "dictionary"))
     dst = a[1]["dst_pos"].cpu().numpy()
     out = native.native_resolve_tokens(
         a[0][: a[1]["tok_rows"]].T.contiguous().cpu().numpy().view(np.uint32),
@@ -183,7 +229,8 @@ def phase_big_chunk(decode_cu, ib, packed):
     args = (packed.words, packed.nbits, packed.zflag, packed.dst_cap)
     # two chunks in, lanes sit in every state of a dynamic block
     _, carry = decode_cu.decode_tokens(*args, T=4 * CHUNK_K, K=CHUNK_K,
-                                       device=dev)
+                                       device=dev,
+                                       _chunk=decode_cu.decode_chunk)
     running, builds = ib._chunk_gate(carry)
     if not running:
         raise AssertionError("no lane left running after two chunks")
@@ -196,8 +243,9 @@ def phase_big_chunk(decode_cu, ib, packed):
         torch.full((N,), 1 << 30, dtype=torch.int32, device=dev),
         torch.zeros(N, dtype=torch.int32, device=dev),
         torch.zeros(N, dtype=torch.int32, device=dev))
+    w = packed.words.shape[1] + decode_cu.PAD_WORDS
     words = torch.nn.functional.pad(i32(packed.words.view(np.int32)),
-                                    (0, decode_cu.PAD_WORDS))
+                                    (0, decode_cu.PAD_WORDS + (-w) % 4))
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
     def run(fn):
@@ -232,6 +280,93 @@ def phase_big_chunk(decode_cu, ib, packed):
     bound = roofline(moved, live_steps * DECODE_OPS_PER_STEP)
     return (err, float(np.median(times)), plain_ms, times, states, bound,
             (moved, live_steps))
+
+
+def phase_whole_batch(decode_cu, ib, native, lane_rows, packed, payloads):
+    """(c): the whole batch in one launch of the stream kernel."""
+    dev = torch.device("cuda")
+    N = packed.n
+    up = lambda a: torch.from_numpy(a).to(dev)
+    args = (up(packed.words.view(np.int32)), up(packed.nbits),
+            up(packed.zflag), up(packed.dst_cap))
+    T = ib.step_budget(BLOCK)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    launch = decode_cu._launch_stream
+
+    def timed_launch(*a, **k):
+        e0.record()
+        launch(*a, **k)
+        e1.record()
+
+    times = []
+    decode_cu._launch_stream = timed_launch
+    try:
+        for _ in range(6):              # the first one warms up
+            tok, carry = decode_cu.decode_tokens(*args, T=T)
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+    finally:
+        decode_cu._launch_stream = launch
+    times = times[1:]
+    stats = carry["stream_stats"]
+    rows = carry["tok_rows"]
+
+    # every lane OK and byte-equal
+    status = carry["status"].cpu().numpy()
+    dst = carry["dst_pos"].cpu().numpy()
+    toks = tok[:rows].T.contiguous().cpu().numpy().view(np.uint32)
+    out = native.native_resolve_tokens(toks, packed.words, dst, BLOCK)
+    bad = [i for i in range(N) if status[i] != 0
+           or out[i, : dst[i]].tobytes() != payloads[i]]
+    if bad:
+        raise AssertionError(f"whole batch: {len(bad)} lanes wrong, first "
+                             f"{bad[:5]}")
+    del toks, out
+
+    # lanes of that launch against the plain version: lanes are
+    # independent, so theirs are the kernel's results for them.  They span
+    # the batch: match-heavy lanes of a few hundred steps up to the
+    # literal-heavy ones that take the most steps, builds and input
+    stored = sum(int((tok[r0:r0 + 4096] != 0).sum())
+                 for r0 in range(0, rows, 4096))
+    if stored != stats["tokens"]:
+        raise AssertionError(f"whole batch: the kernel counted "
+                             f"{stats['tokens']} tokens, the buffer holds "
+                             f"{stored}")
+    used = lane_rows(tok, rows)
+    by_len = torch.argsort(used)
+    at = torch.linspace(0, N - 1, PLAIN_LANES - 1).long().tolist()
+    pick = by_len[sorted(set(at + [N // 2]))]
+    pick_rows = used[pick].tolist()
+    sub = [a[pick] for a in args]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts, pc = [], None
+    for _ in range(4):
+        ptok, pc = decode_cu.decode_tokens(
+            *sub, T=T, K=PLAIN_K, carry=pc,
+            _chunk=decode_cu.decode_chunk_ref)
+        parts.append((ptok, pc["tok_rows"]))
+        if not (pc["status"] == ib.STATUS_RUNNING).any():
+            break
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = held_equal(decode_cu, decode_cu.select_lanes((tok, carry), pick),
+                     (parts, pc), f"whole batch, {pick.numel()} lanes")
+    plain_steps = sum(r for _, r in parts) // 2
+
+    # the least time the card could take: the input bits the lanes
+    # consumed, state, lens and tables read and written once, the lane
+    # order read, the tokens the kernel stored (NOP slots are never
+    # written: the buffer's zero-fill is outside the timed launch); and
+    # the steps run at STREAM_OPS_PER_STEP plus the builds' sorted symbols
+    in_bytes = int(carry["bitpos"].long().sum()) // 8
+    state_bytes = 4 * N * (20 + 14 + 2 * 40 + 2 * (3 * 48 + 3 + 116) + 1)
+    moved = in_bytes + state_bytes + stats["tokens"] * 4
+    ops = (stats["steps"] * STREAM_OPS_PER_STEP
+           + stats["sorted_symbols"] * BUILD_OPS_PER_SYMBOL)
+    return (err, float(np.median(times)), times, stats, roofline(moved, ops),
+            (moved, ops), plain_s * 1e3, pick_rows, plain_steps)
 
 
 def roofline(n_bytes: int, n_ops: int):
@@ -357,7 +492,7 @@ def phase_device_resident(dt, metrics, decode_cu, checksums_cu, streams,
         raise AssertionError(f"device-resident path: host fallbacks "
                              f"{stats['host_fallbacks'][:5]}")
     if min(launches) <= 0:
-        raise AssertionError(f"device-resident path: (decode_chunk, "
+        raise AssertionError(f"device-resident path: (decode_stream, "
                              f"adler32_batch) launches {launches}")
     if m1.get("token_fetch_bytes", 0) != m0.get("token_fetch_bytes", 0):
         raise AssertionError("device-resident path fetched tokens")
@@ -470,6 +605,7 @@ def main() -> int:
 
     import defl_tpu_torch as dt
     from defl_tpu_torch import metrics
+    from defl_tpu_torch.breakdown import lane_rows
     from defl_tpu_torch.corpus import make_silesia_like
     from defl_tpu_torch.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB
     from defl_tpu_torch.ops import checksums as ck
@@ -488,7 +624,7 @@ def main() -> int:
         host_build = ex.submit(native.load)
         build.load()
         host_build.result()
-    log(f"[1] builds: nvcc (decode_chunk.cu, adler32_batch.cu) "
+    log(f"[1] builds: nvcc (decode_stream.cu, adler32_batch.cu) "
         f"{build.build_seconds:.2f} s, g++ (defl_host.cc) "
         f"{native.build_seconds:.2f} s, together "
         f"{time.perf_counter() - t0:.2f} s; {build.lib_path()}, "
@@ -499,8 +635,9 @@ def main() -> int:
 
     # ---- 2a. small matrix ----
     err_small = phase_small_matrix(decode_cu, ib, pack, native)
-    log(f"[2a] small matrix: kernel == twin bit for bit, bytes OK "
-        f"(max_abs_err {err_small})")
+    log(f"[2a] small matrix: stream kernel == chunk loop by the comparator "
+        f"(also after EFULL -> revive_carry -> resume), chunk kernel == twin "
+        f"slot for slot, bytes OK (max_abs_err {err_small})")
 
     # ---- corpus: the bench's own, 8192 zlib-6 streams x 64 KiB ----
     t0 = time.perf_counter()
@@ -516,11 +653,31 @@ def main() -> int:
     packed = pack.pack_streams(streams, 1, BLOCK)
     (err_big, ms, plain_ms, times, states, (dec_bound, dec_by),
      (moved, live_steps)) = phase_big_chunk(decode_cu, ib, packed)
-    log(f"[2b] chunk N={N_STREAMS} K={CHUNK_K}: kernel == twin bit for bit; "
-        f"kernel {ms:.4f} ms (median of {times}), twin {plain_ms:.1f} ms; "
-        f"bound {dec_bound:.4f} ms by {dec_by} ({moved} B moved, "
+    log(f"[2b] chunk N={N_STREAMS} K={CHUNK_K}: chunk kernel == twin bit for "
+        f"bit; kernel {ms:.4f} ms (median of {times}), twin {plain_ms:.1f} "
+        f"ms; bound {dec_bound:.4f} ms by {dec_by} ({moved} B moved, "
         f"{live_steps} working steps x {DECODE_OPS_PER_STEP} operations); "
         f"lane states after it {states}")
+
+    # ---- 2c. the whole batch in one launch ----
+    (err_all, s_ms, s_times, s_stats, (s_bound, s_by), (s_moved, s_ops),
+     s_plain_ms, s_rows, s_plain_steps) = phase_whole_batch(
+        decode_cu, ib, native, lane_rows, packed, payloads)
+    s_lanes = len(s_rows)
+    log(f"[2c] whole batch N={N_STREAMS} x {BLOCK} B in one launch "
+        f"({decode_cu.STREAM_THREADS} threads a block, "
+        f"{decode_cu.STREAM_LANES_PER_WARP} lanes a warp): {N_STREAMS} lanes "
+        f"OK and byte-equal; kernel {s_ms:.4f} ms (median of {s_times}); "
+        f"tok_rows {s_stats['tok_rows']}, {s_stats['steps']} steps, "
+        f"{s_stats['tokens']} tokens stored, "
+        f"{s_stats['builds']} builds sorting {s_stats['sorted_symbols']} "
+        f"symbols, builds' share of the lanes' cycles "
+        f"{s_stats['build_share']:.4f}; bound {s_bound:.4f} ms by {s_by} "
+        f"({s_moved} B moved, {s_ops} operations); {s_lanes} lanes of that "
+        f"launch == the chunk loop by the comparator (max_abs_err {err_all}; "
+        f"the chunk loop took {s_plain_ms:.0f} ms for those lanes, "
+        f"{s_plain_steps} steps of K={PLAIN_K} chunks; token rows those "
+        f"lanes used in the launch: {s_rows})")
     del packed
 
     # ---- 3. the main path, once ----
@@ -547,7 +704,7 @@ def main() -> int:
         raise AssertionError("main path never launched the decode kernel")
     fetched = m1["token_fetch_bytes"] - m0.get("token_fetch_bytes", 0)
     log(f"[3] inflate_batch: {N_STREAMS} lanes OK and byte-equal, "
-        f"0 host fallbacks, {launches} decode_chunk launches, "
+        f"0 host fallbacks, {launches} decode_stream launches, "
         f"{fetched} token bytes fetched; wall {wall:.3f} s = "
         f"{raw / wall / 1e9:.4f} GB/s")
     del results, outputs
@@ -596,7 +753,7 @@ def main() -> int:
         dt, metrics, decode_cu, checksums_cu, streams, payloads, flags)
     log(f"[6] device_inflate(resolve='device', verify adler32): "
         f"{N_STREAMS} lanes OK and byte-equal, 0 host fallbacks, "
-        f"{dec_l6} decode_chunk and {adler_l6} adler32_batch launches, no "
+        f"{dec_l6} decode_stream and {adler_l6} adler32_batch launches, no "
         f"token fetched; bad trailers -> ERR and UNFINISHED; wall "
         f"{dwall:.3f} s = {raw / dwall / 1e9:.4f} GB/s (host-resolve route "
         f"in [3]: {wall:.3f} s)")
@@ -618,15 +775,22 @@ def main() -> int:
         log(f"[7] DeviceInflateSession(resolve='{mode}'): {SESSION_LANES} "
             f"lanes in {feeds} feeds OK and byte-equal, input_pos right, "
             f"EFULL -> resize_output -> resume OK, {decode_cu.launches} "
-            f"decode_chunk launches; wall {swall:.3f} s")
+            f"decode_stream launches; wall {swall:.3f} s")
 
+    # decode_stream: the whole-batch launch of [2c]; plain_ms is the chunk
+    # loop's time for plain_lanes of its lanes (the twin's time hardly
+    # depends on the lane count).  The chunk kernel of [2b] shares the
+    # source and the step; it is off the main path and stands in the log.
     kernels = [{
-        "name": "decode_chunk", "route": "cuda",
-        "source": "defl_tpu_torch/csrc/decode_chunk.cu",
+        "name": "decode_stream", "route": "cuda",
+        "source": "defl_tpu_torch/csrc/decode_stream.cu",
         "replaces": "defl_tpu/ops/pallas/decode_pl.py:663",
-        "launches": launches, "max_abs_err": max(err_small, err_big),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": dec_bound,
-        "bound_by": dec_by, "library_ms": None}, {
+        "launches": launches,
+        "max_abs_err": max(err_small, err_big, err_all),
+        "ms": s_ms, "plain_ms": s_plain_ms, "plain_lanes": s_lanes,
+        "bound_ms": s_bound, "bound_by": s_by, "library_ms": None,
+        "tok_rows": s_stats["tok_rows"], "chunk_kernel_ms": ms,
+        "chunk_twin_ms": plain_ms}, {
         "name": "adler32_batch", "route": "cuda",
         "source": "defl_tpu_torch/csrc/adler32_batch.cu",
         "replaces": "defl_tpu/ops/pallas/checksums_pl.py:53",

@@ -2,7 +2,8 @@
 
 It runs the batched inflate on an NVIDIA H100: streams are packed on the
 host and decoded to tokens on the card by a CUDA kernel written by hand
-for Hopper (``csrc/decode_chunk.cu``).  The tokens resolve to bytes
+for Hopper (``csrc/decode_stream.cu``: one launch a decode, Huffman
+tables built on the card in shared memory).  The tokens resolve to bytes
 either in the C++ host resolver (the main path) or on the card
 (``ops/resolve.py``), where a second hand-written kernel
 (``csrc/adler32_batch.cu``) checks the zlib trailers.  ``defl_tpu`` stays
@@ -18,7 +19,8 @@ Layers (module names follow ``defl_tpu``)
                              device checksums, host retry
 - ``runtime.stream_device``  ``DeviceInflateSession``: incremental feeds
                              over a resumable carry
-- ``ops.cuda.decode_cu``     chunk loop, decode kernel wrapper, plain twin
+- ``ops.cuda.decode_cu``     the decode: stream kernel wrapper, its plain
+                             version (chunk loop over the twin), comparator
 - ``ops.checksums``, ``ops.cuda.checksums_cu``
                              batched adler32: plain version, kernel wrapper
 - ``ops.resolve``            tokens -> bytes on the device

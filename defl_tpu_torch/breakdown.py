@@ -2,6 +2,7 @@
 
     python -m defl_tpu_torch.breakdown [--streams 8192] [--block 65536]
                                        [--reps 3] [--json PATH]
+    python -m defl_tpu_torch.breakdown --probe
 
 On bench.py's corpus (``make_silesia_like``, zlib level 6) it measures,
 with a device sync after each part:
@@ -10,22 +11,27 @@ with a device sync after each part:
   upload, decode, token fetch, host resolve, per-lane ``bytes``; and
   beside them the device-resident route's pass 2 on the same tokens:
   device resolve, the adler32 kernel, and the output's copy to the host;
-- inside one decode, the chunk loop's parts summed over its chunks: the
-  gate sync, the table builds, the kernel-input repack, the kernel and
-  the state unpack.  The loop is ``decode_cu.decode_tokens`` itself, with
-  those functions wrapped in timers for the run;
+- inside one decode (``decode_cu.decode_tokens`` itself, ``reps`` times):
+  the host's work before the launch (the carry packed once, the token
+  buffer zero-filled, the lanes ordered), the stream kernel's device time
+  by CUDA events, the call's one sync (the read of the launch's totals),
+  the unpacking after it; launches, ``tok_rows``, steps, builds and the
+  builds' share of the lanes' cycles;
 - one decode under ``torch.profiler``: the union of device activity
   against the wall, i.e. the device's idle share, and the busiest kernels.
 
-Each part is timed with a sync around it, so the parts add up to more
-than an unsynced decode.  Prints a readable report and one JSON line;
-``--json`` also writes the JSON to a file.  Needs a CUDA card.
+With ``--probe`` it times the stream kernel alone instead (CUDA events
+around the launch, best of ``reps``): the whole batch, and with only the
+batch's longest lane, only its 32 longest lanes, and only its median lane
+running, which is the serial chain no launch shape can shorten.
+
+Prints a readable report and one JSON line; ``--json`` also writes the
+JSON to a file.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import subprocess
 import sys
@@ -52,34 +58,6 @@ def corpus(n: int, block: int):
     return payloads, streams
 
 
-def _timed(fn, acc, key):
-    def run(*a, **k):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn(*a, **k)
-        torch.cuda.synchronize()
-        acc[key] = acc.get(key, 0.0) + time.perf_counter() - t0
-        return r
-    return run
-
-
-@contextlib.contextmanager
-def _loop_timers(acc):
-    """Wrap the chunk loop's parts in synced timers for one decode."""
-    saved = [(ib, "_chunk_gate"), (ib, "_apply_builds"),
-             (decode_cu, "_kernel_inputs"), (decode_cu, "_unpack_state")]
-    names = ["gate_sync", "table_builds", "kernel_input_repack",
-             "state_unpack"]
-    old = [getattr(m, a) for m, a in saved]
-    try:
-        for (m, a), f, name in zip(saved, old, names):
-            setattr(m, a, _timed(f, acc, name))
-        yield _timed(decode_cu.decode_chunk, acc, "kernel")
-    finally:
-        for (m, a), f in zip(saved, old):
-            setattr(m, a, f)
-
-
 def stages(streams, payloads, block):
     """One device_inflate batch, stage by stage (seconds)."""
     dev = torch.device("cuda")
@@ -99,7 +77,8 @@ def stages(streams, payloads, block):
     tokens, st = decode_cu.decode_tokens(*args, T=ib.step_budget(C))
     torch.cuda.synchronize()
     t["decode"] = time.perf_counter() - t0
-    t["chunks"] = decode_cu.launches - l0
+    t["launches"] = decode_cu.launches - l0
+    t["tok_rows"] = st["tok_rows"]
     t0 = time.perf_counter()
     toks = fetch_tokens([(tokens, st["tok_rows"])])
     dst_pos = st["dst_pos"].cpu().numpy()
@@ -137,19 +116,112 @@ def stages(streams, payloads, block):
     return t, args, C
 
 
-def loop_split(args, C):
-    """The chunk loop's parts, summed over one decode (seconds)."""
-    acc = {}
-    ref = decode_cu.decode_tokens(*args, T=ib.step_budget(C))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with _loop_timers(acc) as chunk:
-        tok, st = decode_cu.decode_tokens(*args, T=ib.step_budget(C),
-                                          _chunk=chunk)
-    acc["wall"] = time.perf_counter() - t0
-    if st["tok_rows"] != ref[1]["tok_rows"] or not torch.equal(tok, ref[0]):
-        raise AssertionError("timed loop differs from the plain loop")
-    return acc
+def decode_split(args, C, reps):
+    """One decode's parts (seconds), ``reps`` times after a warm-up."""
+    launch, read = decode_cu._launch_stream, decode_cu._read_meta
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t = {}
+
+    def timed_launch(*a, **k):
+        e0.record()
+        launch(*a, **k)
+        e1.record()
+        t["launched"] = time.perf_counter()
+
+    def timed_read(meta):
+        t["read_from"] = time.perf_counter()
+        out = read(meta)
+        t["read_to"] = time.perf_counter()
+        return out
+
+    decode_cu._launch_stream, decode_cu._read_meta = timed_launch, timed_read
+    out = []
+    try:
+        for r in range(reps + 1):
+            l0 = decode_cu.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, st = decode_cu.decode_tokens(*args, T=ib.step_budget(C))
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if r:
+                out.append({
+                    "wall": t2 - t0, "before_launch": t["launched"] - t0,
+                    "kernel_device": e0.elapsed_time(e1) / 1e3,
+                    "sync_read": t["read_to"] - t["read_from"],
+                    "after_read": t1 - t["read_to"], "drain": t2 - t1,
+                    "launches": decode_cu.launches - l0,
+                    **st["stream_stats"]})
+    finally:
+        decode_cu._launch_stream, decode_cu._read_meta = launch, read
+    return out
+
+
+def probe(args, C, reps):
+    """The stream kernel alone: the whole batch, and single lanes."""
+    from defl_tpu_torch.ops.cuda import build
+
+    N = args[1].shape[0]
+    T = ib.step_budget(C)
+    launch = decode_cu._launch_stream
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+
+    def timed_launch(*a, **k):
+        e0.record()
+        launch(*a, **k)
+        e1.record()
+
+    def best(carry=None):
+        times = []
+        for _ in range(reps + 1):
+            tok, st = decode_cu.decode_tokens(*args, T=T, carry=carry)
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        return min(times[1:]), tok, st
+
+    def only(lanes):
+        """A fresh carry in which only ``lanes`` are RUNNING."""
+        dev = args[0].device
+        st = ib._init_scan_state(N, dev)
+        st["state"] = torch.where(args[2] > 0, ib.S_ZHDR,
+                                  ib.S_BHDR).to(torch.int32)
+        st["status"].fill_(0)
+        st["status"][torch.as_tensor(lanes, device=dev)] = ib.STATUS_RUNNING
+        return {**st, **ib._init_chunk_state(N, dev)}
+
+    decode_cu._launch_stream = timed_launch
+    try:
+        ms, tok, st = best()
+        if (st["status"] != 0).any():
+            raise AssertionError("whole batch: lanes not OK")
+        rec = {"threads": decode_cu.STREAM_THREADS,
+               "lanes_per_warp": decode_cu.STREAM_LANES_PER_WARP,
+               "ptxas": [l.strip() for l in build.build_log.splitlines()
+                         if "registers" in l],
+               "whole_batch": {"ms": ms, **st["stream_stats"]}}
+        by_len = torch.argsort(lane_rows(tok, st["tok_rows"])).tolist()
+        for name, lanes in (("longest_lane", by_len[-1:]),
+                            ("longest_32_lanes", by_len[-32:]),
+                            ("median_lane", by_len[N // 2:N // 2 + 1])):
+            ms, _, one = best(carry=only(lanes))
+            rec[name] = {"ms": ms, "steps": one["stream_stats"]["steps"]}
+    finally:
+        decode_cu._launch_stream = launch
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def lane_rows(tok, rows):
+    """int64 [N]: one past the last token row each lane wrote, i.e. twice
+    the steps it took up to its last token."""
+    used = torch.zeros(tok.shape[1], dtype=torch.int64, device=tok.device)
+    for r0 in range(0, rows, 4096):
+        live = tok[r0:min(r0 + 4096, rows)] != 0
+        at = torch.arange(r0, r0 + live.shape[0],
+                          device=tok.device)[:, None] + 1
+        used = torch.maximum(used, torch.where(live, at, 0).amax(0))
+    return used
 
 
 def profile(args, C):
@@ -192,6 +264,7 @@ def main(argv=None) -> int:
     ap.add_argument("--block", type=int, default=65536)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--json", default=None)
+    ap.add_argument("--probe", action="store_true")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("breakdown: needs a CUDA card", file=sys.stderr)
@@ -204,6 +277,17 @@ def main(argv=None) -> int:
     payloads, streams = corpus(a.streams, a.block)
     print(f"corpus: {a.streams} x {a.block} B, raw "
           f"{sum(map(len, payloads))} B", flush=True)
+    if a.probe:
+        dev = torch.device("cuda")
+        p = pack_streams(streams, 1, a.block)
+        args = tuple(torch.from_numpy(x).to(dev) for x in (
+            p.words.view(np.int32), p.nbits, p.zflag, p.dst_cap))
+        rec = {"card": card, "streams": a.streams, "block": a.block,
+               "probe": probe(args, _bucket(a.block), a.reps)}
+        if a.json:
+            with open(a.json, "w") as f:
+                json.dump(rec, f, indent=1)
+        return 0
     reps = []
     for r in range(a.reps):
         t, args, C = stages(streams, payloads, a.block)
@@ -211,9 +295,11 @@ def main(argv=None) -> int:
         print(f"stages rep {r}: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in t.items()), flush=True)
-    split = loop_split(args, C)
-    print("chunk loop (s, synced): " + ", ".join(
-        f"{k} {v:.4f}" for k, v in split.items()), flush=True)
+    split = decode_split(args, C, a.reps)
+    for r, part in enumerate(split):
+        print(f"decode rep {r}: " + ", ".join(
+            f"{k} {v:.5f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in part.items()), flush=True)
     prof = profile(args, C)
     print(f"profiler: wall {prof['wall_s']:.4f} s, device busy "
           f"{prof['device_busy_s']}, idle share {prof['idle_share']}",
@@ -222,7 +308,7 @@ def main(argv=None) -> int:
         print(f"  {k['count']:5d} x {k['s'] * 1e3:9.3f} ms  {k['name'][:70]}")
     rec = {"card": card, "streams": a.streams, "block": a.block,
            "stages": reps,
-           "chunk_loop": split, "profiler": prof}
+           "decode": split, "profiler": prof}
     if a.json:
         with open(a.json, "w") as f:
             json.dump(rec, f, indent=1)

@@ -20,7 +20,7 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 _BUILD = os.path.join(_CSRC, "build")
-SOURCES = ("decode_chunk.cu", "adler32_batch.cu")
+SOURCES = ("decode_stream.cu", "adler32_batch.cu")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
@@ -80,6 +80,9 @@ def load():
             _build(path)
         lib = ctypes.CDLL(path)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.decode_stream_launch.restype = i
+        lib.decode_stream_launch.argtypes = [p, p, p, p, p, p, p, p, i, p, p,
+                                             p, i, i, i, i, i, p, i]
         lib.decode_chunk_launch.restype = i
         lib.decode_chunk_launch.argtypes = [p, p, p, i, p, p, p, p, p, i, i,
                                             i, p, i]

@@ -1,31 +1,46 @@
-"""The decode kernel's wrapper, its plain PyTorch twin, and the chunk loop.
+"""The decode kernels' wrappers, their plain PyTorch versions, the comparator.
 
-Counterpart of ``defl_tpu/ops/pallas/decode_pl.py``.
+Counterpart of ``defl_tpu/ops/pallas/decode_pl.py``.  The source
+``csrc/decode_stream.cu`` holds two kernels over one step function:
 
-- ``decode_chunk`` launches the CUDA kernel ``csrc/decode_chunk.cu`` for
-  CUDA tensors and counts each launch in ``launches``; for CPU tensors it
-  runs the twin, and nothing else.
-- ``decode_chunk_ref`` is the twin: the same K lockstep steps of the
-  per-lane state machine, vectorised over lanes with ``torch.gather``.
-  Kernel and twin read bits straight from ``words``, so they agree bit
-  for bit: tokens, state rows and lens.
-- ``decode_tokens`` is the chunk loop (≙ ``decode_tokens_pl``): same
-  signature, carry keys and token format, minus the input window keys.
+- ``decode_tokens`` (≙ ``decode_tokens_pl``) is the whole decode.  For
+  tensors on a CUDA device it launches the stream kernel once (or raises):
+  every lane runs to a fixed point or the end of its step budget and
+  builds its Huffman tables itself; the host reads one small tensor, and
+  that is the call's only sync.  Each launch is counted in ``launches``,
+  and its totals ride in the carry as ``stream_stats``.
+  For tensors on the CPU it runs the kernel's plain version: the chunk
+  loop over ``decode_chunk_ref`` with ``ib._apply_builds`` between chunks.
+  ``_chunk=`` selects that loop on any device.
+- ``decode_chunk`` is one K-step chunk with tables the caller built: the
+  chunk kernel for CUDA tensors (counted in ``chunk_launches``), the twin
+  ``decode_chunk_ref`` for CPU tensors.  The two agree bit for bit, slot
+  for slot: tokens, state rows and lens.
+- ``compare_decodes`` says whether two complete decodes are equal: per
+  lane the same end state, the same tokens in order, and for a resumable
+  lane the same tables.  Token slots may differ (a lane of the chunk loop
+  idles while it waits for a build), so tokens are compacted first.
 
-Kernel-facing layout (all int32, lane-minor so that a warp's loads of
-one row coalesce):
+Kernel-facing layout (all int32; lane-minor rows so that a warp's loads
+of one row coalesce, lane-major where the kernel reads a lane's row as a
+run of 16-byte vectors):
 
     st_pk  [NROWS, N]  state rows R_* (u32 rows as bit patterns)
     lens   [40, N]     nibble-packed code lengths (u32 bits)
-    words  [N, W]      packed input (u32 bits), >= 5 words past nbits
+    words  [N, W]      packed input (u32 bits), >= 5 zero words past nbits;
+                       decode_tokens pads W to a multiple of 4 so that
+                       every row starts on a 16-byte boundary
+    tok    [rows, N]   two token slots per step (u32 bits), NOP = 0
+  decode_chunk only:
     bound  [48, N]     left-justified code-space boundaries, kind*16+len
     adjoff [48, N]     offs[len] - first[len], kind*16+len
     maxlen [3, N]
     syms   [116, N]    symbol bank, 3 x 10-bit per word (u32 bits)
-    tok    [2K, N]     two token slots per step (u32 bits), NOP = 0
+  the stream kernel only (the carry's own layout):
+    count, first, offs [N, 3, 16];  maxlen [N, 3];  syms [N, 116]
 
-``st_pk`` and ``lens`` are updated in place: JAX's immutability buys
-nothing here, and the chunk loop repacks them every chunk anyway.
+``st_pk``, ``lens`` and the stream kernel's tables are updated in place:
+they are this call's own copies of the carry.
 """
 
 from __future__ import annotations
@@ -59,8 +74,16 @@ ST_KEYS = ("state", "bitpos", "final", "hlit", "hdist", "hclen", "idx",
 #: 131 bits from its word-aligned cursor, i.e. five words (csrc header)
 PAD_WORDS = 8
 
-#: launches of the CUDA kernel since import (or since a caller reset it)
+#: launches of the stream kernel (one per decode_tokens call on CUDA) and
+#: of the chunk kernel, since import or since a caller reset them
 launches = 0
+chunk_launches = 0
+#: the stream kernel's block (threads) and how many threads of each warp
+#: own a lane; a block's lanes share its shared memory
+STREAM_THREADS = 128
+STREAM_LANES_PER_WARP = 8
+#: int64 words of a stream launch's totals, read with the call's one sync
+META_WORDS = 8
 
 _OK, _ERR, _UNF, _EFULL = (int(Result.OK), int(Result.ERR),
                            int(Result.UNFINISHED), int(Result.EFULL))
@@ -125,8 +148,8 @@ def decode_chunk(st_pk, lens_pk, words, bound, adjoff, maxlen, syms,
     if rc != 0:
         raise RuntimeError(f"decode_chunk kernel launch failed: CUDA error "
                            f"{rc}")
-    global launches
-    launches += 1
+    global chunk_launches
+    chunk_launches += 1
     return tok_out, st_pk, lens_pk
 
 
@@ -485,24 +508,38 @@ def decode_chunk_ref(st_pk, lens_pk, words, bound, adjoff, maxlen, syms,
 
 
 # ---------------------------------------------------------------------------
-# chunk loop
+# carry <-> kernel rows
 # ---------------------------------------------------------------------------
 
-def _kernel_inputs(st, ck, nbits, cap, limit, dict_reach, in_base):
-    """Carry dicts -> the kernel-facing rows (layout in the module doc).
-
-    bound[l] = (first[l] + count[l]) << (15 - l) and adjoff[l] = offs[l] -
-    first[l]: the same build, in the layout the boundary-sum decode reads
-    (≙ decode_pl.py:808-817)."""
-    N = nbits.shape[0]
+def _pack_state(st, nbits, cap, limit, dict_reach, in_base):
+    """The carry's per-lane scalars and the call's per-lane constants ->
+    st_pk [NROWS, N] and lens [40, N], int32 (layout in the module doc)."""
     i32 = lambda x: x.to(torch.int32)
     rows = [st["state"], st["bitpos"], st["final"], st["hlit"], st["hdist"],
             st["hclen"], st["idx"], st["prev"], st["dst_pos"],
             st["need_build"], st["resume_state"], st["status"],
             u32_to_i32(st["cl_lo"]), u32_to_i32(st["cl_hi"]), nbits, cap,
             torch.zeros_like(nbits), limit, dict_reach, in_base]
-    st_pk = torch.stack([i32(r) for r in rows])
-    lens = u32_to_i32(st["lens_pk"]).contiguous()
+    return (torch.stack([i32(r) for r in rows]),
+            u32_to_i32(st["lens_pk"]).contiguous())
+
+
+def _state_from_rows(st_pk, lens):
+    """st_pk rows and lens -> the carry's SCAN_KEYS (rows are views)."""
+    st = {key: (i32_to_u32(st_pk[r]) if key in ("cl_lo", "cl_hi")
+                else st_pk[r]) for r, key in enumerate(ST_KEYS)}
+    st["lens_pk"] = i32_to_u32(lens)
+    return st
+
+
+def _kernel_inputs(st, ck, nbits, cap, limit, dict_reach, in_base):
+    """Carry dicts -> decode_chunk's rows (layout in the module doc).
+
+    bound[l] = (first[l] + count[l]) << (15 - l) and adjoff[l] = offs[l] -
+    first[l]: the same build, in the layout the boundary-sum decode reads
+    (≙ decode_pl.py:808-817)."""
+    N = nbits.shape[0]
+    st_pk, lens = _pack_state(st, nbits, cap, limit, dict_reach, in_base)
     sh = (15 - torch.arange(16, device=nbits.device, dtype=torch.int32))
     bound = ((ck["first"] + ck["count"]) << sh).permute(1, 2, 0)
     adjoff = (ck["offs"] - ck["first"]).permute(1, 2, 0)
@@ -512,51 +549,144 @@ def _kernel_inputs(st, ck, nbits, cap, limit, dict_reach, in_base):
 
 
 def _unpack_state(st, st_pk, lens):
-    st = dict(st)
-    for r, key in enumerate(ST_KEYS):
-        st[key] = (i32_to_u32(st_pk[r]) if key in ("cl_lo", "cl_hi")
-                   else st_pk[r])
-    st["lens_pk"] = i32_to_u32(lens)
-    return st
+    return {**st, **_state_from_rows(st_pk, lens)}
 
+
+# ---------------------------------------------------------------------------
+# the stream kernel
+# ---------------------------------------------------------------------------
+
+def _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words,
+                   tok, meta, order, n_steps, has_dict):
+    """Launch the stream kernel on tensors this call owns, at the launch
+    shape ``STREAM_THREADS`` x ``STREAM_LANES_PER_WARP``; raise when the
+    card refuses the launch.  Every launch adds one to ``launches``."""
+    from defl_tpu_torch.ops.cuda import build
+
+    dev = st_pk.device
+    N = st_pk.shape[1]
+    want = {"st_pk": (st_pk, (NROWS, N)), "lens": (lens, (ib.LENS_WORDS, N)),
+            "count": (count, (N, 3, 16)), "first": (first, (N, 3, 16)),
+            "offs": (offs, (N, 3, 16)), "maxlen": (maxlen, (N, 3)),
+            "syms": (syms, (N, tables.SYMS_WORDS)),
+            "words": (words, (N, words.shape[-1])),
+            "tok": (tok, (2 * n_steps, N)), "meta": (meta, (META_WORDS,)),
+            "order": (order, (N,))}
+    for name, (t, shape) in want.items():
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; the stream kernel "
+                             f"takes tensors of one CUDA device")
+        dtype = torch.int64 if name == "meta" else torch.int32
+        if t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+    threads, lanes_per_warp = STREAM_THREADS, STREAM_LANES_PER_WARP
+    rc = build.load().decode_stream_launch(
+        st_pk.data_ptr(), lens.data_ptr(), count.data_ptr(),
+        first.data_ptr(), offs.data_ptr(), maxlen.data_ptr(),
+        syms.data_ptr(), words.data_ptr(), words.shape[1],
+        tok.data_ptr(), meta.data_ptr(), order.data_ptr(), N,
+        n_steps, int(bool(has_dict)), int(threads), int(lanes_per_warp),
+        torch.cuda.current_stream(dev).cuda_stream,
+        dev.index if dev.index is not None else torch.cuda.current_device())
+    if rc != 0:
+        raise RuntimeError(f"decode_stream kernel launch failed: CUDA error "
+                           f"{rc} ({threads} threads a block, "
+                           f"{lanes_per_warp} lanes a warp)")
+    global launches
+    launches += 1
+
+
+def _read_meta(meta):
+    """The call's one sync with the host: the launch's totals."""
+    return meta.tolist()
+
+
+def _decode_stream(words, nbits, cap, limit, dict_reach, in_base, st, ck,
+                   n_steps, has_dict):
+    """One decode on the card: pack the carry once, one launch, one sync.
+
+    The carry it returns also holds ``stream_stats``, the launch's totals
+    over all lanes: token rows used, steps run, tokens stored, table
+    builds, symbols the builds sorted, and the builds' share of the lanes'
+    cycles."""
+    dev = words.device
+    st_pk, lens = _pack_state(st, nbits, cap, limit, dict_reach, in_base)
+    own = lambda t: t.to(torch.int32, copy=True).contiguous()
+    count, first, offs = own(ck["count"]), own(ck["first"]), own(ck["offs"])
+    maxlen = own(ck["maxlen"])
+    syms = u32_to_i32(ck["syms"]).contiguous()
+    # zero-filled here; the kernel stores real tokens only
+    tok = torch.zeros((2 * n_steps, nbits.shape[0]), dtype=torch.int32,
+                      device=dev)
+    meta = torch.zeros(META_WORDS, dtype=torch.int64, device=dev)
+    # threads take the lanes by the input they have left, most first: a
+    # warp's lanes then have alike work (and alike data), so they branch
+    # alike and end together, and the longest lanes start first
+    left = torch.where(st_pk[R_STATUS] == ib.STATUS_RUNNING,
+                       nbits - st_pk[R_BITPOS], -1)
+    order = torch.argsort(left, descending=True, stable=True).to(torch.int32)
+    _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words, tok,
+                   meta, order, n_steps, has_dict)
+    (rows, steps, builds, sorted_syms, t_build, t_lanes,
+     stored) = _read_meta(meta)[:7]
+    stats = {"tok_rows": rows, "steps": steps, "tokens": stored,
+             "builds": builds, "sorted_symbols": sorted_syms,
+             "build_share": t_build / t_lanes if t_lanes else 0.0}
+    carry = _state_from_rows(st_pk, lens)
+    carry.update(count=count, first=first, offs=offs, maxlen=maxlen,
+                 syms=i32_to_u32(syms), tok_rows=rows, stream_stats=stats)
+    return tok, carry
+
+
+# ---------------------------------------------------------------------------
+# the decode
+# ---------------------------------------------------------------------------
 
 def decode_tokens(words, nbits, zflag, cap, *, T: int, K: int | None = None,
                   dict_len: int = 0, has_dict: bool = False, carry=None,
                   limit=None, start_bit=None, dict_reach=None,
                   shared_input: bool = False, in_base=None, device=None,
                   _chunk=None):
-    """Run the lockstep decoder for up to T steps (≙ decode_tokens_pl).
+    """Run the decoder for up to max(K, T // 2) steps a lane (≙
+    decode_tokens_pl).
 
     words: packed streams [N, W], a uint32 ndarray (as pack_streams
     makes it) or an int32 tensor of the same bits; nbits/zflag/cap: [N].
-    Everything runs on ``device`` (default: where ``words`` lies).
-    Per chunk: the batched table builds, one kernel launch, and one host
-    sync (``ib._chunk_gate``) that decides both whether a lane still runs
-    and which builds fire.  Returns (tokens int32 [rows, N] holding u32
-    token bits, carry dict); carry["tok_rows"] (an int) bounds the rows
-    written.  A carry from an earlier call resumes where it stopped;
-    token buffers of successive calls concatenate along axis 0.
-    K (steps per chunk) defaults by device: 512 on CUDA, where the kernel
-    has no window to outrun and long chunks mean fewer per-chunk syncs
-    and table-build passes; 128 on the CPU, where the twin pays for every
-    step whether or not a lane still works, so shorter chunks waste fewer
-    steps behind table builds and after the last lane.
-    ``_chunk`` replaces the chunk function (tests and the smoke run pass
-    ``decode_chunk_ref`` to drive the twin on the card).
+    Everything runs on ``device``: by default where a ``words`` tensor
+    lies, and on CUDA for an ndarray, like every other entry point.
+    Returns (tokens int32 [rows, N] holding u32 token bits, carry dict);
+    carry["tok_rows"] (an int) bounds the rows written.  A carry from an
+    earlier call resumes where it stopped; token buffers of successive
+    calls concatenate along axis 0.
+
+    On CUDA the stream kernel runs the whole call in one launch, builds
+    included, and the host syncs once, for tok_rows; a lane spends a step
+    of its budget only where it does one.  On the CPU, or with
+    ``_chunk`` (tests and the smoke run pass ``decode_chunk_ref`` to drive
+    the plain version on the card), the chunk loop runs: per chunk the
+    batched table builds, one ``_chunk`` call of K steps and one host sync
+    (``ib._chunk_gate``); a lane that waits for a build idles meanwhile.
+    K defaults to 512 on CUDA and 128 on the CPU, where the twin pays for
+    every step whether or not a lane still works.
     """
     if shared_input:
         raise NotImplementedError(
             "shared_input (runtime/large.py's split decode) is not ported "
             "yet")
-    chunk = _chunk or decode_chunk
     if isinstance(words, np.ndarray):
         words = torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
-    dev = torch.device(device) if device is not None else words.device
+        dev = torch.device("cuda" if device is None else device)
+    else:
+        dev = torch.device(device) if device is not None else words.device
     if K is None:
         K = 512 if dev.type == "cuda" else 128
     N = nbits.shape[0]
     as32 = lambda x: torch.as_tensor(x, device=dev).to(torch.int32)
-    words = F.pad(words.to(dev), (0, PAD_WORDS))
+    # >= PAD_WORDS zero words, up to a row length that is a multiple of 4
+    pad = PAD_WORDS + (-(words.shape[1] + PAD_WORDS)) % 4
+    words = F.pad(words.to(dev), (0, pad))
     nbits, zflag, cap = as32(nbits), as32(zflag), as32(cap)
     limit = (torch.full((N,), 1 << 30, dtype=torch.int32, device=dev)
              if limit is None else as32(limit))
@@ -575,8 +705,18 @@ def decode_tokens(words, nbits, zflag, cap, *, T: int, K: int | None = None,
         ck = {k: carry[k] for k in ib.CHUNK_KEYS}
 
     n_steps = max(K, T // 2)
+    if _chunk is None and dev.type == "cuda":
+        return _decode_stream(words, nbits, cap, limit, dict_reach, in_base,
+                              st, ck, n_steps, has_dict)
+    if _chunk is None and dev.type != "cpu":
+        raise ValueError(f"decode_tokens runs on cuda or cpu, not {dev}")
+
+    # the plain version: the chunk loop
+    chunk = _chunk or decode_chunk_ref
     n_chunks = (n_steps + K - 1) // K
-    tokbuf = torch.zeros((n_chunks * 2 * K, N), dtype=torch.int32, device=dev)
+    # every chunk writes all of its slots; the rows no chunk reached are
+    # cleared once at the end
+    tokbuf = torch.empty((n_chunks * 2 * K, N), dtype=torch.int32, device=dev)
     ci = 0
     while ci < n_chunks:
         running, builds = ib._chunk_gate(st)
@@ -589,4 +729,96 @@ def decode_tokens(words, nbits, zflag, cap, *, T: int, K: int | None = None,
               tokbuf[ci * 2 * K:(ci + 1) * 2 * K], K=K, has_dict=has_dict)
         st = _unpack_state(st, st_pk, lens)
         ci += 1
+    tokbuf[ci * 2 * K:].zero_()
     return tokbuf, {**st, **ck, "tok_rows": ci * 2 * K}
+
+
+# ---------------------------------------------------------------------------
+# the comparator
+# ---------------------------------------------------------------------------
+
+#: a lane's end state, compared for every lane
+_LANE_KEYS = ("status", "state", "bitpos", "dst_pos", "final", "resume_state")
+_RESUMABLE = (_UNF, _EFULL, ib.STATUS_RUNNING)
+
+
+def compact_tokens(parts) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token parts [(tokbuf, tok_rows), ...] of successive calls -> (int64
+    [N, M] each lane's non-NOP tokens in order as u32 values, zero after
+    them; int64 [N] their number)."""
+    toks = torch.cat([t[:rows] for t, rows in parts], 0)
+    lanes = i32_to_u32(toks.T)
+    live = lanes != 0
+    n = live.sum(1)
+    order = torch.argsort((~live).to(torch.int8), dim=1, stable=True)
+    width = int(n.max()) if n.numel() else 0
+    return lanes.gather(1, order[:, :width]), n
+
+
+def select_lanes(run, lanes):
+    """(parts, carry) of a decode -> the same run reduced to ``lanes``."""
+    parts, carry = run
+    if torch.is_tensor(parts):
+        parts = [(parts, carry["tok_rows"])]
+    idx = torch.as_tensor(lanes, device=carry["status"].device)
+    out = {k: (v if not torch.is_tensor(v) else
+               v[:, idx] if k == "lens_pk" else v[idx])
+           for k, v in carry.items()}
+    return [(t[:rows, idx], rows) for t, rows in parts], out
+
+
+def compare_decodes(a, b, lanes=None) -> int:
+    """Whether two complete decodes of the same lanes are equal: the
+    largest absolute difference found, so 0 means equal.
+
+    a, b: (parts, carry), each run's token parts [(tokbuf, tok_rows), ...]
+    in call order (or one (tokbuf, carry) pair for a single call) and its
+    last carry, both run until no lane is RUNNING.  Compared, for every
+    lane (or the rows ``lanes`` of both): status, state, bitpos, dst_pos,
+    final, resume_state, and the lane's non-NOP tokens in order; and for a
+    lane that a later call can resume (UNFINISHED, EFULL, or out of
+    budget) the rest of its state rows, its lens and its tables.  Token
+    slots are not compared: they depend on when a lane waited.
+    """
+    runs = []
+    for parts, carry in (a, b):
+        if torch.is_tensor(parts):
+            parts = [(parts, carry["tok_rows"])]
+        runs.append((parts, carry) if lanes is None
+                    else select_lanes((parts, carry), lanes))
+    (pa, ca), (pb, cb) = runs
+    dev = ca["status"].device
+
+    def lane_rows(c, key):
+        t = c[key].to(dev)
+        if key == "lens_pk":
+            t = t.T
+        return t.to(torch.int64).reshape(t.shape[0], -1)
+
+    err = 0
+
+    def hold(x, y, rows=None):
+        nonlocal err
+        if x.shape != y.shape:
+            err = max(err, 1 << 32)
+            return
+        d = (x - y).abs()
+        if rows is not None:
+            d = d[rows]
+        if d.numel():
+            err = max(err, int(d.max()))
+
+    for key in _LANE_KEYS:
+        hold(lane_rows(ca, key), lane_rows(cb, key))
+    status = lane_rows(ca, "status")[:, 0]
+    resumable = torch.isin(status, torch.tensor(_RESUMABLE, device=dev))
+    for key in (*ST_KEYS, "lens_pk", *ib.CHUNK_KEYS):
+        if key not in _LANE_KEYS:
+            hold(lane_rows(ca, key), lane_rows(cb, key), resumable)
+    (ta, na), (tb, nb) = (compact_tokens([(t.to(dev), rows) for t, rows in p])
+                          for p in (pa, pb))
+    hold(na, nb)
+    width = max(ta.shape[1], tb.shape[1])
+    hold(F.pad(ta, (0, width - ta.shape[1])),
+         F.pad(tb, (0, width - tb.shape[1])))
+    return err

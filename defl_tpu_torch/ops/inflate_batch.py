@@ -181,7 +181,8 @@ def _dist_from_sym(dsym, peek, off):
 # ---------------------------------------------------------------------------
 
 def _chunk_gate(st):
-    """The chunk loop's one host sync per chunk.
+    """The chunk loop's one host sync per chunk (the loop is the plain
+    version of the stream kernel, which builds its tables itself).
 
     Returns (any lane still RUNNING, builds) where builds is None when no
     table build runs before this chunk, else the (CL, LIT/DIST, fixed)

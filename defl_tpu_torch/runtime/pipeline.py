@@ -8,8 +8,8 @@ keeps the JAX package's order per iteration:
     fetch(i) -> decode(i+1) -> wait resolve(i-1) -> submit resolve(i)
 
 In JAX the decode call returned at once (async dispatch).  Here the
-decode is synchronous — the chunk loop syncs with the host once per
-chunk — so decode(i+1) runs on the calling thread while resolve(i-1)
+decode is synchronous — one kernel launch, then one read of its totals
+by the host — so decode(i+1) runs on the calling thread while resolve(i-1)
 runs in the executor; the resolver is a ctypes call, which releases the
 GIL, so the two overlap all the same.  The token fetch copies exactly
 the occupied rows into a pinned host buffer of each batch's own, which
@@ -64,8 +64,8 @@ def pipeline_inflate(stream_batches, dst_capacity: int, flags=FLAG_ZLIB,
     T = ib.step_budget(C)
 
     def default_fetch(tokens, st):
-        # exactly the occupied rows (tok_rows = chunks run x slots per
-        # chunk) into a pinned buffer of the batch's own; the per-lane
+        # exactly the occupied rows (tok_rows: the last row any lane
+        # wrote) into a pinned buffer of the batch's own; the per-lane
         # metadata crosses in one transfer
         toks_nt = fetch_tokens([(tokens, st["tok_rows"])])
         meta = torch.stack([st["dst_pos"], st["status"], st["bitpos"]]).cpu()

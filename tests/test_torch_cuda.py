@@ -6,9 +6,12 @@ Marked ``needs_cuda``: each test skips when ``torch.cuda.is_available()``
 is False (decided inside a fixture, never at import).  On a machine with
 a card, run ``python -m pytest tests/test_torch_cuda.py -q`` (add
 ``--noconftest`` where jax is not installed: tests/conftest.py imports
-it, and this file needs nothing from it).  The decode
-kernel and its twin read bits straight from the packed input, so every
-comparison is exact: tokens, state rows and lens; a checksum is exact by
+it, and this file needs nothing from it).  Every comparison is exact.
+The stream kernel (one launch per ``decode_tokens`` call) is held against
+its plain version, the chunk loop, by ``decode_cu.compare_decodes``: the
+same end state and tokens per lane, the same tables for a resumable lane.
+The chunk kernel and its twin read bits straight from the packed input and
+agree slot for slot: tokens, state rows and lens.  A checksum is exact by
 nature.
 """
 
@@ -53,23 +56,57 @@ def _matrix():
 def _assert_same(a, b):
     (ta, ca), (tb, cb) = a, b
     assert ca["tok_rows"] == cb["tok_rows"]
-    assert torch.equal(ta, tb)
+    rows = ca["tok_rows"]
+    assert torch.equal(ta[:rows], tb[:rows])
     for k in ca:
         if k != "tok_rows":
             assert torch.equal(ca[k], cb[k]), k
 
 
+def _until_done(packed, new_cap=None, carry=None, max_calls=40, **kw):
+    """decode_tokens until no lane is RUNNING; with ``new_cap``, EFULL
+    lanes are then revived once with that capacity and run on.  Returns
+    (parts, carry) as compare_decodes takes them."""
+    words, nbits, zflag, cap = packed
+    cap = torch.as_tensor(cap, dtype=torch.int32, device="cuda")
+    kw = {"T": 4096, "device": "cuda", **kw}
+    parts = []
+    for _ in range(max_calls):
+        tok, carry = decode_cu.decode_tokens(words, nbits, zflag, cap,
+                                             carry=carry, **kw)
+        parts.append((tok, carry["tok_rows"]))
+        if not (carry["status"] == ib.STATUS_RUNNING).any():
+            if new_cap is None:
+                return parts, carry
+            cap = torch.full_like(cap, new_cap)
+            carry = ib.revive_carry(carry, new_cap=cap)
+            new_cap = None
+    raise AssertionError("lanes still RUNNING")
+
+
+def _plain(**kw):
+    return dict(_chunk=decode_cu.decode_chunk_ref, K=128, **kw)
+
+
+def _packed(streams, zflag, caps):
+    p = pack_streams(streams, zflag, caps)
+    return p.words, p.nbits, p.zflag, p.dst_cap
+
+
 @pytest.mark.parametrize("K", [8, 32, 512])
 def test_kernel_matches_twin_full_decode(K):
+    """The chunk kernel in the chunk loop against the twin in the same
+    loop, slot for slot."""
     streams, zflag = _matrix()
     p = pack_streams(streams, zflag, 8192)
     args = (p.words, p.nbits, p.zflag, p.dst_cap)
-    launches = decode_cu.launches
-    a = decode_cu.decode_tokens(*args, T=4096, K=K, device="cuda")
+    launches = decode_cu.chunk_launches
+    a = decode_cu.decode_tokens(*args, T=4096, K=K, device="cuda",
+                                _chunk=decode_cu.decode_chunk)
     b = decode_cu.decode_tokens(*args, T=4096, K=K, device="cuda",
                                 _chunk=decode_cu.decode_chunk_ref)
     torch.cuda.synchronize()
-    assert decode_cu.launches > launches
+    assert decode_cu.chunk_launches > launches
     _assert_same(a, b)
     assert (a[1]["status"][:7] == 0).all()
 
@@ -79,7 +116,7 @@ def test_kernel_matches_twin_efull_resume_and_dictionary():
     p = pack_streams(streams[:6], 1, [100, 3000, 17, 699, 7999, 1])
     args = (p.words, p.nbits, p.zflag, p.dst_cap)
     runs = []
-    for chunk in (None, decode_cu.decode_chunk_ref):
+    for chunk in (decode_cu.decode_chunk, decode_cu.decode_chunk_ref):
         t1, c1 = decode_cu.decode_tokens(*args, T=4096, K=32, device="cuda",
                                          _chunk=chunk)
         cap = torch.full((6,), 8192, dtype=torch.int32, device="cuda")
@@ -92,19 +129,218 @@ def test_kernel_matches_twin_efull_resume_and_dictionary():
         _assert_same(a, b)
     assert (runs[0][1][1]["status"] == 0).all()
 
-    d = b"a shared preset dictionary: hello world " * 4
-    co = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_DEFAULT_STRATEGY,
-                          zdict=d)
-    zs = [co.compress(b"hello world " * 50) + co.flush()]
+    d, zs = _dict_stream()
     pd = pack_streams(zs, 1, 4096)
     kw = dict(T=4096, K=32, device="cuda", has_dict=True,
               dict_len=pack_dictionary(d)[1])
     dargs = (pd.words, pd.nbits, pd.zflag, pd.dst_cap)
-    a = decode_cu.decode_tokens(*dargs, **kw)
+    a = decode_cu.decode_tokens(*dargs, **kw, _chunk=decode_cu.decode_chunk)
     b = decode_cu.decode_tokens(*dargs, **kw,
                                 _chunk=decode_cu.decode_chunk_ref)
     _assert_same(a, b)
     assert a[1]["status"][0] == 0
+
+
+def _dict_stream():
+    d = b"a shared preset dictionary: hello world " * 4
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_DEFAULT_STRATEGY,
+                          zdict=d)
+    return d, [co.compress(b"hello world " * 50) + co.flush()]
+
+
+# ---- the stream kernel against the chunk loop --------------------------------
+
+def _full_matrix():
+    """_matrix plus a fixed block, a lane of many small blocks, bad tables
+    left to the CPU tests' hand-made streams, and EFULL capacities."""
+    streams, zflag = _matrix()
+    rng = np.random.default_rng(5)
+    words = [bytes(rng.integers(97, 123, rng.integers(2, 9), dtype=np.uint8))
+             for _ in range(60)]
+    text = b" ".join(words[i] for i in rng.integers(0, 60, 900))
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 1)   # a block per 127 symbols
+    many = (co.compress(text[:2000]) + co.flush(zlib.Z_SYNC_FLUSH)
+            + co.compress(text[2000:]) + co.flush())
+    fixed = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FIXED)
+    streams = streams + [many, fixed.compress(b"ab" * 4000) + fixed.flush(),
+                         zlib.compress(bytes(range(256)) * 16, 9)]
+    zflag = zflag + [1, 1, 1]
+    caps = [8192] * len(streams)
+    caps[2], caps[12] = 1000, 777        # EFULL mid-run and mid-block
+    return streams, zflag, caps, text
+
+
+def test_stream_kernel_equals_the_chunk_loop():
+    streams, zflag, caps, text = _full_matrix()
+    packed = _packed(streams, zflag, caps)
+    launches, chunks = decode_cu.launches, decode_cu.chunk_launches
+    got = _until_done(packed)
+    assert decode_cu.launches == launches + 1    # one call, one launch
+    assert decode_cu.chunk_launches == chunks
+    want = _until_done(packed, **_plain())
+    assert decode_cu.compare_decodes(got, want) == 0
+    st = got[1]["status"].tolist()
+    assert st == [0, 0, -105, 0, 0, 0, 0, 0, -1, 2, 0, 0, -105]
+    assert got[1]["dst_pos"][10] == len(text)
+    stats = got[1]["stream_stats"]
+    assert got[0][0][1] == stats["tok_rows"] > 0
+    toks = got[0][0][0][: stats["tok_rows"]]
+    assert stats["tokens"] == int((toks != 0).sum())
+
+
+def test_stream_kernel_efull_revive_resume():
+    streams, zflag, caps, _ = _full_matrix()
+    packed = _packed(streams, zflag, caps)
+    got = _until_done(packed, new_cap=8192)
+    want = _until_done(packed, new_cap=8192, **_plain())
+    assert decode_cu.compare_decodes(got, want) == 0
+    assert len(got[0]) == 2
+    assert (got[1]["status"][[2, 12]] == 0).all()
+    # the same bytes as a decode that never ran full
+    once = _until_done(_packed(streams, zflag, 8192))
+    for a in (got, once):
+        toks = torch.cat([t[:r] for t, r in a[0]])
+        a[1]["out"] = resolve_tokens(
+            toks, torch.from_numpy(packed[0].view(np.int32)).cuda(),
+            a[1]["dst_pos"], C=8192)
+    assert torch.equal(got[1]["out"], once[1]["out"])
+
+
+@pytest.mark.parametrize("budget", [16, 40, 90])
+def test_stream_kernel_budget_cut_resumes_to_the_same_end(budget):
+    """A lane cut by its step budget anywhere (in a header, before a
+    build, mid-block) keeps status 127 and resumes from its carry."""
+    streams, zflag, caps, _ = _full_matrix()
+    packed = _packed(streams, zflag, caps)
+    one = _until_done(packed)
+    launches = decode_cu.launches
+    cut = _until_done(packed, T=budget, K=budget // 2, max_calls=400)
+    assert len(cut[0]) > 2
+    assert decode_cu.launches == launches + len(cut[0])
+    assert (cut[0][0][1] <= budget)
+    assert decode_cu.compare_decodes(cut, one) == 0
+    assert decode_cu.compare_decodes(cut, _until_done(packed, **_plain())) == 0
+
+
+def test_stream_kernel_and_chunk_loop_hand_each_other_a_carry():
+    streams, zflag, caps, _ = _full_matrix()
+    packed = _packed(streams, zflag, caps)
+    want = _until_done(packed)
+    t1, c1 = decode_cu.decode_tokens(*packed, T=64, K=32, device="cuda",
+                                     _chunk=decode_cu.decode_chunk_ref)
+    assert ((c1["state"] == ib.S_WAIT) & (c1["need_build"] > 0)).any()
+    rest = _until_done(packed, carry=c1)
+    got = ([(t1, c1["tok_rows"])] + rest[0], rest[1])
+    assert decode_cu.compare_decodes(got, want) == 0
+    t1, c1 = decode_cu.decode_tokens(*packed, T=60, K=30, device="cuda")
+    assert (c1["status"] == ib.STATUS_RUNNING).any()
+    rest = _until_done(packed, carry=c1, **_plain())
+    got = ([(t1, c1["tok_rows"])] + rest[0], rest[1])
+    assert decode_cu.compare_decodes(got, want) == 0
+
+
+def test_stream_kernel_dictionary():
+    d, zs = _dict_stream()
+    kw = dict(has_dict=True, dict_len=pack_dictionary(d)[1])
+    packed = _packed(zs, 1, 4096)
+    got = _until_done(packed, **kw)
+    assert decode_cu.compare_decodes(got, _until_done(packed, **_plain(**kw))) \
+        == 0
+    assert got[1]["status"].tolist() == [0]
+    # FDICT without a dictionary is an error, as in the reference
+    assert _until_done(packed)[1]["status"].tolist() == [-1]
+
+
+@pytest.mark.parametrize("n,w", [(1, 460), (31, 461), (33, 462), (64, 463)])
+def test_stream_kernel_lane_counts_and_row_lengths(n, w):
+    """Blocks that are not full, and rows whose length plus the padding is
+    no multiple of four words before decode_tokens rounds it up."""
+    streams, zflag, caps, _ = _full_matrix()
+    pick = [i % len(streams) for i in range(3, 3 + n)]
+    p = pack_streams([streams[i] for i in pick], [zflag[i] for i in pick],
+                     [caps[i] for i in pick])
+    words = np.zeros((n, w), np.uint32)
+    words[:, : p.words.shape[1]] = p.words
+    assert (w + decode_cu.PAD_WORDS) % 4 != 0 or w == 460
+    packed = (words, p.nbits, p.zflag, p.dst_cap)
+    got = _until_done(packed)
+    assert decode_cu.compare_decodes(got, _until_done(packed, **_plain())) == 0
+
+
+@pytest.mark.parametrize("threads,lanes_per_warp",
+                         [(32, 32), (32, 1), (64, 16), (256, 4)])
+def test_stream_kernel_launch_shapes_agree(threads, lanes_per_warp,
+                                           monkeypatch):
+    """Any block size and share of each warp's threads that own a lane
+    gives the same decode; above 48 KB a block's shared memory is dynamic
+    and opted into (the default shape, 32 lanes a block, is)."""
+    streams, zflag, caps, _ = _full_matrix()
+    packed = _packed(streams * 11, zflag * 11, caps * 11)
+    want = _until_done(packed)
+    monkeypatch.setattr(decode_cu, "STREAM_THREADS", threads)
+    monkeypatch.setattr(decode_cu, "STREAM_LANES_PER_WARP", lanes_per_warp)
+    assert decode_cu.compare_decodes(_until_done(packed), want) == 0
+
+
+def test_stream_kernel_refused_launch_raises(monkeypatch):
+    """1024 threads a block (256 lanes) would need over 900 KB of shared
+    memory: the card refuses, and the wrapper raises instead of taking
+    another route."""
+    streams, zflag, caps, _ = _full_matrix()
+    launches = decode_cu.launches
+    with monkeypatch.context() as m:
+        m.setattr(decode_cu, "STREAM_THREADS", 1024)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            decode_cu.decode_tokens(*_packed(streams, zflag, caps), T=4096,
+                                    device="cuda")
+    assert decode_cu.launches == launches
+    torch.cuda.synchronize()
+    assert _until_done(_packed(streams, zflag, caps))[1]["status"][0] == 0
+
+
+def test_cuda_decode_is_one_launch_one_sync_and_no_plain_code(monkeypatch):
+    """On CUDA tensors decode_tokens never reaches the chunk loop's parts
+    nor the twin, launches once and reads the card once."""
+    def boom(name):
+        def f(*a, **k):
+            raise AssertionError(f"{name} ran for CUDA tensors")
+        return f
+
+    for mod, name in ((ib, "_chunk_gate"), (ib, "_apply_builds"),
+                      (decode_cu, "_kernel_inputs"),
+                      (decode_cu, "_unpack_state"),
+                      (decode_cu, "decode_chunk_ref"),
+                      (decode_cu, "decode_chunk"),
+                      (ib, "_build_cl"), (ib, "_build_litdist"),
+                      (ib, "_build_fixed")):
+        monkeypatch.setattr(mod, name, boom(name))
+    streams, zflag, caps, _ = _full_matrix()
+    p = pack_streams(streams, zflag, caps)
+    args = [torch.from_numpy(a).cuda() for a in
+            (p.words.view(np.int32), p.nbits, p.zflag, p.dst_cap)]
+    decode_cu.decode_tokens(*args, T=4096)   # warm: build, fixed tables
+    reads = []
+    real = decode_cu._read_meta
+
+    def read(meta):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            reads.append(1)
+            return real(meta)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(decode_cu, "_read_meta", read)
+    launches = decode_cu.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # any other sync raises
+    try:
+        tok, c = decode_cu.decode_tokens(*args, T=4096)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert decode_cu.launches == launches + 1
+    assert reads == [1]
+    assert c["status"].tolist()[:2] == [0, 0]
 
 
 def _chunk_inputs(device="cuda", n=300, w=64):
@@ -128,10 +364,10 @@ def test_cuda_call_never_reaches_the_twin(monkeypatch):
 
     monkeypatch.setattr(decode_cu, "decode_chunk_ref", boom)
     a = _chunk_inputs()
-    launches = decode_cu.launches
+    launches = decode_cu.chunk_launches
     tok, st, _ = decode_cu.decode_chunk(*a, K=16)
     torch.cuda.synchronize()
-    assert decode_cu.launches == launches + 1
+    assert decode_cu.chunk_launches == launches + 1
     assert tok.is_cuda and tok.shape == (32, 300)
 
 
@@ -144,10 +380,10 @@ def test_wrapper_refuses(fault):
         a[2] = a[2].to(torch.int64)
     else:
         a[2] = torch.zeros((64, 300), dtype=torch.int32, device="cuda").T
-    launches = decode_cu.launches
+    launches = decode_cu.chunk_launches
     with pytest.raises((TypeError, ValueError)):
         decode_cu.decode_chunk(*a, K=16)
-    assert decode_cu.launches == launches
+    assert decode_cu.chunk_launches == launches
 
 
 def test_fetches_do_not_share_a_host_buffer():

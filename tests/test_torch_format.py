@@ -23,7 +23,7 @@ from defl_tpu_torch.ops import tables as ttables
 from defl_tpu_torch.ops.cuda import decode_cu
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CU = os.path.join(REPO, "defl_tpu_torch", "csrc", "decode_chunk.cu")
+CU = os.path.join(REPO, "defl_tpu_torch", "csrc", "decode_stream.cu")
 
 INFLATE_NAMES = [n for n in dir(jib) if re.fullmatch(r"S_[A-Z_]+", n)] + [
     "STATUS_RUNNING", "TOK_NOP", "TOK_LIT", "TOK_MATCH", "TOK_STORED",
@@ -94,6 +94,27 @@ def test_kernel_codes_mirror_jax():
     assert cu["SYMS_BANK"] == jtables.SYMS_BANK
     for kind in ("LIT", "MATCH", "STORED"):
         assert cu[f"TOK_{kind}"] == getattr(jib, f"TOK_{kind}")
+    for name in ("STATUS_RUNNING", "LENS_WORDS"):
+        assert cu[name] == getattr(jib, name)
+    for name in ("CL_BASE", "LIT_BASE", "DIST_BASE_", "SYMS_WORDS"):
+        assert cu[name] == getattr(jtables, name)
+
+
+def test_kernel_shared_memory_layout_holds_the_tables():
+    """The stream kernel's per-lane shared words lie back to back: the
+    symbol bank, adjoff and the boundaries (3 tables x 16 lengths each),
+    the lens words, 16 sort counters and the 8-word input ring; a lookup
+    entry holds any symbol beside any code length."""
+    cu = _cu_constants()
+    assert cu["OFF_SYMS"] == 0
+    assert cu["OFF_ADJ"] == cu["OFF_SYMS"] + jtables.SYMS_WORDS
+    assert cu["OFF_BND"] == cu["OFF_ADJ"] + 48
+    assert cu["OFF_LENS"] == cu["OFF_BND"] + 48
+    assert cu["OFF_CNT"] == cu["OFF_LENS"] + jib.LENS_WORDS
+    assert cu["OFF_RING"] == cu["OFF_CNT"] + 16
+    assert cu["LANE_WORDS"] == cu["OFF_RING"] + 8
+    assert 287 < (1 << cu["LUT_LEN_SHIFT"]) and (15 << cu["LUT_LEN_SHIFT"]) \
+        < (1 << 16)
 
 
 def test_kernel_cl_order_mirrors_jax():

@@ -191,7 +191,8 @@ def _decoded_tokens(streams, cap, dictionary=None):
     dl = len(dictionary) if dictionary else 0
     tok, c = decode_cu.decode_tokens(p.words, p.nbits, p.zflag, p.dst_cap,
                                      T=4096, K=128, dict_len=dl,
-                                     has_dict=dictionary is not None)
+                                     has_dict=dictionary is not None,
+                                     device="cpu")
     toks = tok[: c["tok_rows"]].T.contiguous().numpy().view(np.uint32)
     return toks, p, c["dst_pos"].numpy(), c["status"].numpy()
 

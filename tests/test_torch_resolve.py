@@ -34,7 +34,7 @@ def _decode(streams, dictionary=None):
     tok, c = decode_cu.decode_tokens(
         p.words, p.nbits, p.zflag, p.dst_cap, T=8192, K=128,
         dict_len=len(dictionary) if dictionary else 0,
-        has_dict=dictionary is not None)
+        has_dict=dictionary is not None, device="cpu")
     assert c["status"].tolist() == [0] * len(streams)
     return tok[: c["tok_rows"]], p.words, c["dst_pos"]
 
