@@ -1,5 +1,6 @@
 """Smoke run of defl_tpu_torch on one CUDA card: the batched inflate main
-path, the device-resident inflate and the streaming session.
+path, the device-resident inflate, the streaming session, the split decode
+of one huge stream and the hybrid encode.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -20,8 +21,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      (c) the whole batch, 8192 x 64 KiB, in one launch of the stream
      kernel: its time by CUDA events (median of 5) beside its bound, all
      lanes byte-equal to their payloads, and lanes of that launch from
-     the shortest through the median to the longest held against the
-     chunk loop by the comparator;
+     the shortest through the median held against the chunk loop by the
+     comparator (the longest lane is held in tests/test_torch_cuda.py:
+     the plain version runs as long as its longest lane);
   3. the main path once: inflate_batch(backend="device") on bench.py's
      corpus, 8192 zlib-6 streams x 64 KiB; every lane OK and byte-equal,
      no host fallback, and the decode kernel launched;
@@ -39,7 +41,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      memory;
   7. DeviceInflateSession on the card, with resolve="host" and
      resolve="device": 1024 lanes fed in four uneven pieces and then
-     empty feeds, and an EFULL -> resize_output -> resume case.
+     empty feeds, and an EFULL -> resize_output -> resume case;
+  8. one huge stream, split at block starts and decoded by the decode
+     kernel's shared-input mode (every lane reads the one body on the
+     card): (a) a stream of small blocks at a small segment size: the
+     stream kernel against the chunk loop by the comparator, the chunk
+     kernel against its twin slot for slot, and the tokens stitched to the
+     stream's bytes; (b) the corpus's first 1024 payloads joined (64 MiB,
+     one zlib level 6 stream) and its first 4096 (256 MiB), each through
+     inflate_large(use_device=True, out=buffer) with the trailer verified
+     and through inflate_batch(backend="device"): OK, byte-equal, the
+     device route taken, at least 80% of the lanes valid, one launch;
+     lanes of that very launch (the shortest of the stream and, in the
+     256 MiB stream, the shortest near its end and the last one, whose
+     cursors are the largest) held against the chunk loop over the same
+     body by the comparator, and the chunk kernel against its twin slot
+     for slot on them; the stages'
+     seconds, the launch's time beside its bound, and the host-parallel
+     and serial C++ engines on the same buffer;
+  9. the hybrid encode, 2048 x 64 KiB at level 6: device_deflate with both
+     packs byte-identical to the C++ encoder, every lane decompressed by
+     zlib, no lane fallen back; on 64 lanes the closed-form scan pack
+     against the reservoir loop over the steps that hold a field,
+     exactly; the stages' seconds.
 Each kernel's count of launches is set to 0 just before the path that
 uses it and read just after.  The line before the last holds the card's
 name and power limit, the one before it the kernels' JSON record; the
@@ -63,6 +87,22 @@ N_STREAMS = 8192
 BLOCK = 65536
 CHUNK_K = 512
 SESSION_LANES = 1024
+# [8]: the split decode.  (a) a stream of small blocks and a small segment,
+# so that the plain version's lanes take a few thousand steps; (b) payloads
+# joined into one stream, as bench.py's "large64" does
+SPLIT_RAW_BYTES = 2 << 20
+SPLIT_SEGMENT = 1024
+LARGE_PAYLOADS = (1024, 4096)
+# lanes of each big stream's launch that the plain version re-decodes: the
+# SPLIT_HELD with the fewest steps of the whole stream and, in the larger
+# stream, as many of its last SPLIT_TAIL lanes and the last lane (the
+# largest cursors, the ring's clamp at the body's end).  The last lane has
+# some 11,000 steps of the twin, so only one stream pays for it
+SPLIT_HELD = 6
+SPLIT_TAIL = 64
+# [9]: bench.py's encode shape, and the lanes the reservoir loop re-packs
+DEFLATE_STREAMS = 2048
+PACK_LOOP_LANES = 64
 
 # the card's published peaks (NVIDIA H100 SXM data sheet): device memory
 # rate, and the float32 rate outside the tensor cores, taken here as the
@@ -82,9 +122,10 @@ DECODE_OPS_PER_STEP = 250
 STREAM_OPS_PER_STEP = 120
 BUILD_OPS_PER_SYMBOL = 12 + 6 * 1280 // 320
 # lanes of the whole-batch launch that the plain version re-decodes, taken
-# evenly over the lanes ordered by the steps they took, the shortest, the
-# median and the longest among them: the twin pays 1-4 ms a step whatever
-# the lane count, so the run lasts as long as the batch's longest lane.
+# evenly over the shorter half of the lanes ordered by the steps they took,
+# the shortest and the median among them: the twin pays 1-6 ms a step
+# whatever the lane count, so the run lasts as long as its longest lane
+# (the batch's longest lane is held in tests/test_torch_cuda.py).
 # A short chunk keeps the steps a lane idles before its builds few.
 PLAIN_LANES = 64
 PLAIN_K = 128
@@ -325,8 +366,8 @@ def phase_whole_batch(decode_cu, ib, native, lane_rows, packed, payloads):
 
     # lanes of that launch against the plain version: lanes are
     # independent, so theirs are the kernel's results for them.  They span
-    # the batch: match-heavy lanes of a few hundred steps up to the
-    # literal-heavy ones that take the most steps, builds and input
+    # the batch's shorter half: match-heavy lanes of a few hundred steps
+    # up to the median lane
     stored = sum(int((tok[r0:r0 + 4096] != 0).sum())
                  for r0 in range(0, rows, 4096))
     if stored != stats["tokens"]:
@@ -335,8 +376,8 @@ def phase_whole_batch(decode_cu, ib, native, lane_rows, packed, payloads):
                              f"{stored}")
     used = lane_rows(tok, rows)
     by_len = torch.argsort(used)
-    at = torch.linspace(0, N - 1, PLAIN_LANES - 1).long().tolist()
-    pick = by_len[sorted(set(at + [N // 2]))]
+    at = torch.linspace(0, N // 2, PLAIN_LANES).long().tolist()
+    pick = by_len[sorted(set(at))]
     pick_rows = used[pick].tolist()
     sub = [a[pick] for a in args]
     torch.cuda.synchronize()
@@ -597,6 +638,208 @@ def phase_stream_session(dt, streams, payloads, resolve):
     return wall, feeds
 
 
+def phase_split_comparator(decode_cu, large, native, fetch_tokens, payloads):
+    """8a: the shared-input mode against its plain versions."""
+    raw = b"".join(payloads)[:SPLIT_RAW_BYTES]
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 4)   # a block per 1023 symbols
+    comp = co.compress(raw) + co.flush()
+    body = np.frombuffer(comp, np.uint8)[2:]
+    cands = large._find_candidates(body, 0, body.size // SPLIT_SEGMENT,
+                                   8 * SPLIT_SEGMENT)
+    kw = large.lane_args(body.size, cands)
+    args = (kw.pop("nbits"), kw.pop("zflag"), kw.pop("cap"))
+    kw.update(dict_len=large.WINDOW, shared_input=True)
+    words = torch.from_numpy(decode_cu.pad_body(body)).view(
+        torch.int32).cuda()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    got = decode_cu.decode_tokens(words, *args, **kw)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    t0 = time.perf_counter()
+    twin = decode_cu.decode_tokens(words, *args, K=PLAIN_K, **kw,
+                                   _chunk=decode_cu.decode_chunk_ref)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    kern = decode_cu.decode_tokens(words, *args, K=PLAIN_K, **kw,
+                                   _chunk=decode_cu.decode_chunk)
+    torch.cuda.synchronize()
+    err = max(compare_runs(kern, twin, "split decode"),
+              held_equal(decode_cu, got, twin, "split decode"))
+    st = got[1]
+    status = st["status"].cpu().numpy()
+    bit_end = st["bitpos"].cpu().numpy().astype(np.int64)
+    valid = int(((status[:-1] == 0)
+                 & (bit_end[:-1] == np.asarray(cands[1:]))).sum()) \
+        + int(status[-1] == 0)
+    if valid < 0.8 * len(cands):
+        raise AssertionError(f"split decode: {valid} of {len(cands)} lanes "
+                             f"valid")
+    out = np.zeros(len(raw) + 64, np.uint8)
+    r, total, _ = native.stitch(
+        native.load(), body, cands,
+        (fetch_tokens([(got[0], st["tok_rows"])]),
+         st["dst_pos"].cpu().numpy(), status, st["final"].cpu().numpy(),
+         bit_end), out)
+    if int(r) != 0 or out[:total].tobytes() != raw:
+        raise AssertionError(f"split decode: stitched bytes wrong ({r})")
+    return (err, ms, plain_ms, len(cands), valid, twin[1]["tok_rows"] // 2,
+            len(comp))
+
+
+def held_split_lanes(decode_cu, lane_rows, call, tail):
+    """Lanes of a split decode's launch, as ``inflate_large`` made it,
+    against the plain version at the same shape: ``call`` holds that
+    launch's arguments and what it returned.  The lanes' arguments are
+    indexed and the body stays the one on the card, so the cursors, limits
+    and word offsets are the launch's own."""
+    (words, nbits, zflag, cap), kw, (tok, carry) = call
+    M = int(nbits.shape[0])
+    used = lane_rows(tok, carry["tok_rows"]).cpu().numpy()
+    pick = np.argsort(used, kind="stable")[:SPLIT_HELD]
+    if tail:
+        last = np.arange(max(0, M - SPLIT_TAIL), M)
+        pick = np.concatenate([
+            pick, last[np.argsort(used[last], kind="stable")[:SPLIT_HELD]],
+            [M - 1]])
+    pick = np.unique(pick)
+    per_lane = {k: np.asarray(kw[k])[pick]
+                for k in ("limit", "start_bit", "dict_reach", "in_base")}
+    sub = (words, nbits[pick], zflag[pick], cap[pick])
+    skw = dict(T=kw["T"], K=PLAIN_K, dict_len=kw["dict_len"],
+               shared_input=True, **per_lane)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin = decode_cu.decode_tokens(*sub, **skw,
+                                   _chunk=decode_cu.decode_chunk_ref)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    kern = decode_cu.decode_tokens(*sub, **skw, _chunk=decode_cu.decode_chunk)
+    torch.cuda.synchronize()
+    what = f"split decode, {pick.size} lanes of {M}"
+    err = max(compare_runs(kern, twin, what),
+              held_equal(decode_cu,
+                         decode_cu.select_lanes((tok, carry), pick.tolist()),
+                         twin, what))
+    return {"err": err, "lanes": pick.tolist(), "rows": used[pick].tolist(),
+            "start_bits": per_lane["start_bit"].tolist(),
+            "plain_ms": plain_s * 1e3, "plain_steps": twin[1]["tok_rows"] // 2}
+
+
+def big_stream(payloads, n_payloads):
+    """(raw, one zlib level 6 stream of it, seconds it took to make)."""
+    raw = b"".join(payloads[:n_payloads])
+    t0 = time.perf_counter()
+    comp = zlib.compress(raw, 6)
+    return raw, comp, time.perf_counter() - t0
+
+
+def phase_large(dt, decode_cu, lane_rows, large_stages, stream, flags, tail):
+    """8b: one big stream through the entry points, lanes of its launch
+    against the plain version, then its stages and the host engines beside
+    it."""
+    raw, comp, made = stream
+    buf = np.zeros(len(raw) + 64, np.uint8)
+    buf.fill(1)
+    st = {}
+    calls = []
+    decode = decode_cu.decode_tokens
+
+    def kept(*a, **k):
+        out = decode(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    decode_cu.launches = 0
+    decode_cu.decode_tokens = kept      # the launch's arguments and tokens
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r, n = dt.inflate_large(comp, flags, use_device=True, out=buf,
+                                stats_out=st)
+        wall = time.perf_counter() - t0
+    finally:
+        decode_cu.decode_tokens = decode
+    launches = decode_cu.launches
+    if int(r) != 0 or n != len(raw) or buf[:n].tobytes() != raw:
+        raise AssertionError(f"inflate_large: result {r}, {n} bytes, or "
+                             f"bytes wrong")
+    if st["route"] != "device" or launches != 1 or len(calls) != 1:
+        raise AssertionError(f"inflate_large: route {st['route']}, "
+                             f"{launches} launches")
+    if st["lanes_valid"] < 0.8 * st["lanes"]:
+        raise AssertionError(f"inflate_large: {st['lanes_valid']} of "
+                             f"{st['lanes']} lanes valid")
+    held = held_split_lanes(decode_cu, lane_rows, calls.pop(), tail)
+    decode_cu.launches = 0
+    t0 = time.perf_counter()
+    res, outs = dt.inflate_batch([comp], flags, backend="device",
+                                 dst_capacities=[len(raw)])
+    bwall = time.perf_counter() - t0
+    if [int(x) for x in res] != [0] or outs[0] != raw \
+            or decode_cu.launches != 1:
+        raise AssertionError(f"inflate_batch of one big stream: {res}, "
+                             f"{decode_cu.launches} launches")
+    del outs
+    rec = large_stages(raw, comp, 1, flags)
+    dev = rec["device"][0]
+    # the launch's bound: the body read once, the tokens it stored, state
+    # and tables of its lanes read and written once, the lane order
+    M = dev["lanes"]
+    state_bytes = 4 * M * (20 + 14 + 2 * 40 + 2 * (3 * 48 + 3 + 116) + 1)
+    moved = len(comp) + 4 * dev["tokens"] + state_bytes
+    ops = dev["steps"] * STREAM_OPS_PER_STEP
+    return {"raw": len(raw), "comp": len(comp), "made_s": made,
+            "first_call": {"wall_s": wall, **st}, "batch_wall_s": bwall,
+            "launches": launches, "stages": dev, "held": held,
+            "launch_ms": dev["launch_ms"][0], "bound": roofline(moved, ops),
+            "moved": moved, "ops": ops,
+            "host_parallel_s": rec["host_parallel"][0]["wall_s"],
+            "serial_s": rec["serial"][0]["wall_s"]}
+
+
+def phase_deflate(dt, native, hp, deflate_stages, payloads):
+    """9: the hybrid encode against the C++ encoder, and the closed-form
+    scan pack against the reservoir loop."""
+    pays = payloads[:DEFLATE_STREAMS]
+    rec = deflate_stages(pays, 1)        # byte-identity is held in there
+    _, want = native.native_deflate_batch(pays, level=6)
+    for pack in ("scan", "scatter"):
+        st = {}
+        outs = dt.device_deflate(pays, level=6, pack=pack, stats_out=st)
+        if outs != want or st["device_fallbacks"]:
+            raise AssertionError(f"device_deflate({pack}): differs from the "
+                                 f"C++ encoder, or fell back")
+        bad = [i for i, (o, p) in enumerate(zip(outs, pays))
+               if zlib.decompress(o) != p]
+        if bad:
+            raise AssertionError(f"device_deflate({pack}): zlib disagrees "
+                                 f"on lanes {bad[:5]}")
+    # 64 lanes spread over the batch, the fields as the encode makes them
+    pick = pays[:: DEFLATE_STREAMS // PACK_LOOP_LANES][:PACK_LOOP_LANES]
+    fields, n_fields, total_bits, _, _ = native.native_deflate_fields(pick)
+    fd = torch.from_numpy(fields.view(np.int32)).cuda()
+    nd = torch.from_numpy(n_fields.astype(np.int32)).cuda()
+    ms, _ = cuda_ms(lambda: hp.pack_fields_scan(fd, nd), reps=3)
+    got = hp.pack_fields_scan(fd, nd)
+    # the loop pays for every step, so it runs over the steps that hold a
+    # field; past them a lane never flushes and the slots must be zero
+    used = int(n_fields.max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = hp.pack_fields_scan_ref(fd[:, :used].contiguous(), nd)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    err = max_abs_diff([(got[0][:, :used], ref[0]), (got[1], ref[1]),
+                        (got[2], ref[2])])
+    if err or got[2].cpu().tolist() != total_bits.tolist() \
+            or bool(got[0][:, used:].any()):
+        raise AssertionError(f"pack_fields_scan: closed form and reservoir "
+                             f"loop differ (max {err})")
+    return rec, ms, loop_s, fields.shape, used
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -605,14 +848,17 @@ def main() -> int:
 
     import defl_tpu_torch as dt
     from defl_tpu_torch import metrics
-    from defl_tpu_torch.breakdown import lane_rows
+    from defl_tpu_torch.breakdown import (deflate_stages, lane_rows,
+                                          large_stages)
     from defl_tpu_torch.corpus import make_silesia_like
     from defl_tpu_torch.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB
     from defl_tpu_torch.ops import checksums as ck
+    from defl_tpu_torch.ops import huffman_pack as hp
     from defl_tpu_torch.ops import inflate_batch as ib
     from defl_tpu_torch.ops import resolve
     from defl_tpu_torch.ops.cuda import build, checksums_cu, decode_cu
-    from defl_tpu_torch.runtime import native, pack
+    from defl_tpu_torch.runtime import large, native, pack
+    from defl_tpu_torch.runtime.session import fetch_tokens
 
     # ---- 1. device, and the three builds started together ----
     smi = nvidia_smi()
@@ -642,8 +888,8 @@ def main() -> int:
     # ---- corpus: the bench's own, 8192 zlib-6 streams x 64 KiB ----
     t0 = time.perf_counter()
     payloads = make_silesia_like(N_STREAMS * BLOCK, BLOCK)[:N_STREAMS]
-    cache = {}
-    streams = [cache.setdefault(id(p), zlib.compress(p, 6)) for p in payloads]
+    pool = ThreadPoolExecutor(max_workers=8)     # zlib releases the GIL
+    streams = list(pool.map(lambda p: zlib.compress(p, 6), payloads))
     raw = sum(len(p) for p in payloads)
     comp = sum(len(s) for s in streams)
     log(f"[2b] corpus: {N_STREAMS} x {BLOCK} B, raw {raw} B, compressed "
@@ -658,6 +904,11 @@ def main() -> int:
         f"ms; bound {dec_bound:.4f} ms by {dec_by} ({moved} B moved, "
         f"{live_steps} working steps x {DECODE_OPS_PER_STEP} operations); "
         f"lane states after it {states}")
+
+    # the big streams of [8b] are compressed meanwhile: [2c]'s times are
+    # the card's, by CUDA events, and its plain run keeps one host thread
+    # busy for longer than the compression lasts
+    big = [pool.submit(big_stream, payloads, n) for n in LARGE_PAYLOADS]
 
     # ---- 2c. the whole batch in one launch ----
     (err_all, s_ms, s_times, s_stats, (s_bound, s_by), (s_moved, s_ops),
@@ -679,6 +930,8 @@ def main() -> int:
         f"{s_plain_steps} steps of K={PLAIN_K} chunks; token rows those "
         f"lanes used in the launch: {s_rows})")
     del packed
+    big = [f.result() for f in big]     # before anything the host times
+    pool.shutdown()
 
     # ---- 3. the main path, once ----
     m0 = metrics.snapshot()
@@ -777,6 +1030,67 @@ def main() -> int:
             f"EFULL -> resize_output -> resume OK, {decode_cu.launches} "
             f"decode_stream launches; wall {swall:.3f} s")
 
+    # ---- 8. one huge stream, split and decoded on the card ----
+    torch.cuda.empty_cache()
+    (err_split, sp_ms, sp_plain_ms, sp_lanes, sp_valid, sp_steps,
+     sp_comp) = phase_split_comparator(decode_cu, large, native,
+                                       fetch_tokens, payloads)
+    log(f"[8a] split decode, {SPLIT_RAW_BYTES} B raw in small blocks "
+        f"({sp_comp} B), {SPLIT_SEGMENT} B segments, {sp_lanes} lanes over "
+        f"one shared body: stream kernel == chunk loop by the comparator, "
+        f"chunk kernel == twin slot for slot (max_abs_err {err_split}), "
+        f"{sp_valid} lanes valid, stitched bytes equal; decode_tokens "
+        f"{sp_ms:.3f} ms, the chunk loop over the twin {sp_plain_ms:.0f} ms "
+        f"({sp_steps} steps of K={PLAIN_K} chunks)")
+    larges = []
+    for n_pay, stream in zip(LARGE_PAYLOADS, big):
+        L = phase_large(dt, decode_cu, lane_rows, large_stages, stream,
+                        flags, tail=n_pay == max(LARGE_PAYLOADS))
+        larges.append(L)
+        fc, sg, hd = L["first_call"], L["stages"], L["held"]
+        stage = lambda d: ", ".join(
+            f"{k[:-2]} {d[k]:.4f}" for k in ("find_s", "upload_s", "decode_s",
+                                             "fetch_s", "stitch_s", "wall_s"))
+        log(f"[8b] one stream of {n_pay} payloads: {L['raw']} B raw, "
+            f"{L['comp']} B compressed (zlib level 6, made in "
+            f"{L['made_s']:.1f} s): inflate_large(use_device=True, out=) OK, "
+            f"byte-equal, adler32 verified, route device, {L['launches']} "
+            f"launch, {fc['lanes_valid']} of {fc['lanes']} lanes valid, "
+            f"tok_rows {fc['tok_rows']}; lanes {hd['lanes']} of that launch "
+            f"(start bits {hd['start_bits']}, token rows {hd['rows']}) == "
+            f"the chunk loop over the same body by the comparator, chunk "
+            f"kernel == twin slot for slot on them (max_abs_err "
+            f"{hd['err']}; the chunk loop took {hd['plain_ms']:.0f} ms, "
+            f"{hd['plain_steps']} steps of K={PLAIN_K} chunks); "
+            f"inflate_batch([stream], "
+            f"backend='device') OK and byte-equal in {L['batch_wall_s']:.3f} "
+            f"s; seconds, first call: {stage(fc)}; warm: {stage(sg)} = "
+            f"{L['raw'] / sg['wall_s'] / 1e9:.4f} GB/s; the launch "
+            f"{L['launch_ms']:.4f} ms, bound {L['bound'][0]:.4f} ms by "
+            f"{L['bound'][1]} ({L['moved']} B moved, {sg['steps']} steps, "
+            f"{sg['tokens']} tokens); host-parallel C++ engine "
+            f"{L['host_parallel_s']:.4f} s, serial C++ engine "
+            f"{L['serial_s']:.4f} s on the same buffer")
+        torch.cuda.empty_cache()
+
+    # ---- 9. the hybrid encode ----
+    d_rec, pk_ms, pk_loop_s, pk_shape, pk_used = phase_deflate(
+        dt, native, hp, deflate_stages, payloads)
+    for name in ("scan", "scatter"):
+        d = d_rec[name][0]
+        log(f"[9] device_deflate(pack='{name}'), {DEFLATE_STREAMS} x {BLOCK} "
+            f"B, level 6: byte-identical to native_deflate_batch, zlib "
+            f"decompresses every lane, no fallback; seconds: " + ", ".join(
+                f"{k[:-2]} {d[k]:.4f}" for k in (
+                    "fields_s", "upload_s", "pack_s", "fetch_s",
+                    "assemble_s", "wall_s")))
+    log(f"[9] native_deflate_batch on the same payloads "
+        f"{d_rec['host'][0]['wall_s']:.4f} s ({d_rec['bytes_in']} B -> "
+        f"{d_rec['bytes_out']} B); pack_fields_scan (closed form) == the "
+        f"reservoir loop exactly on fields {list(pk_shape)}: {pk_ms:.3f} ms "
+        f"against {pk_loop_s:.1f} s of the loop's {pk_used} eager steps (the "
+        f"steps that hold a field; the slots past them are zero)")
+
     # decode_stream: the whole-batch launch of [2c]; plain_ms is the chunk
     # loop's time for plain_lanes of its lanes (the twin's time hardly
     # depends on the lane count).  The chunk kernel of [2b] shares the
@@ -786,11 +1100,28 @@ def main() -> int:
         "source": "defl_tpu_torch/csrc/decode_stream.cu",
         "replaces": "defl_tpu/ops/pallas/decode_pl.py:663",
         "launches": launches,
-        "max_abs_err": max(err_small, err_big, err_all),
+        "max_abs_err": max(err_small, err_big, err_all, err_split,
+                           *(L["held"]["err"] for L in larges)),
         "ms": s_ms, "plain_ms": s_plain_ms, "plain_lanes": s_lanes,
         "bound_ms": s_bound, "bound_by": s_by, "library_ms": None,
         "tok_rows": s_stats["tok_rows"], "chunk_kernel_ms": ms,
-        "chunk_twin_ms": plain_ms}, {
+        "chunk_twin_ms": plain_ms,
+        # the split decode of [8]: launches of the 64 MiB stream's run of
+        # inflate_large, its launch beside its bound; kernel and plain
+        # version on the same inputs in [8a], and on held_lanes of each big
+        # stream's own launch in [8b] (held_plain_ms: the chunk loop's time
+        # for each stream's held lanes)
+        "shared_input": {
+            "launches": larges[0]["launches"],
+            "max_abs_err": max(err_split,
+                               *(L["held"]["err"] for L in larges)),
+            "ms": larges[0]["launch_ms"],
+            "held_lanes": [len(L["held"]["lanes"]) for L in larges],
+            "held_plain_ms": [L["held"]["plain_ms"] for L in larges],
+            "bound_ms": larges[0]["bound"][0],
+            "bound_by": larges[0]["bound"][1],
+            "lanes": larges[0]["stages"]["lanes"],
+            "small_ms": sp_ms, "small_plain_ms": sp_plain_ms}}, {
         "name": "adler32_batch", "route": "cuda",
         "source": "defl_tpu_torch/csrc/adler32_batch.cu",
         "replaces": "defl_tpu/ops/pallas/checksums_pl.py:53",

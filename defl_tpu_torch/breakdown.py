@@ -3,6 +3,8 @@
     python -m defl_tpu_torch.breakdown [--streams 8192] [--block 65536]
                                        [--reps 3] [--json PATH]
     python -m defl_tpu_torch.breakdown --probe
+    python -m defl_tpu_torch.breakdown --large [--payloads 1024]
+    python -m defl_tpu_torch.breakdown --deflate [--streams 2048]
 
 On bench.py's corpus (``make_silesia_like``, zlib level 6) it measures,
 with a device sync after each part:
@@ -25,6 +27,18 @@ around the launch, best of ``reps``): the whole batch, and with only the
 batch's longest lane, only its 32 longest lanes, and only its median lane
 running, which is the serial chain no launch shape can shorten.
 
+With ``--large`` it joins the corpus's first ``payloads`` payloads into one
+zlib level 6 stream and times ``inflate_large`` into a caller-owned,
+pre-faulted buffer, ``reps`` times: the device route's stages (find, what
+is left of the body's upload, decode, fetch, stitch), the launch's device
+time by CUDA events, lanes, valid lanes and token rows; and beside it the
+host-parallel engine and the serial C++ engine on the same buffer.
+
+With ``--deflate`` it times ``device_deflate`` on ``streams`` payloads of
+``block`` bytes, level 6, stage by stage (fields, upload, pack, fetch,
+assemble) for both packs, ``native_deflate_batch`` beside them, and holds
+all three byte-identical.
+
 Prints a readable report and one JSON line; ``--json`` also writes the
 JSON to a file.  Needs a CUDA card.
 """
@@ -42,13 +56,15 @@ import numpy as np
 import torch
 
 from defl_tpu_torch.corpus import make_silesia_like
-from defl_tpu_torch.runtime import native
+from defl_tpu_torch.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB
+from defl_tpu_torch.runtime import large, native
 from defl_tpu_torch.runtime.pack import pack_streams
 from defl_tpu_torch.ops import inflate_batch as ib
 from defl_tpu_torch.ops.checksums import adler32_batch
 from defl_tpu_torch.ops.cuda import decode_cu
 from defl_tpu_torch.ops.resolve import resolve_tokens
-from defl_tpu_torch.runtime.session import _bucket, fetch_tokens
+from defl_tpu_torch.runtime.session import (_bucket, device_deflate,
+                                            fetch_tokens)
 
 
 def corpus(n: int, block: int):
@@ -258,14 +274,142 @@ def profile(args, C):
                     for k, (n, us) in top]}
 
 
+class timed_stream_launch:
+    """While active, every launch of the stream kernel is bracketed by
+    CUDA events and every decode's totals are kept: ``ms`` lists the
+    launches' device times (read after a sync), ``stats`` the
+    ``stream_stats`` of each decode."""
+
+    def __enter__(self):
+        self._launch, self._read = (decode_cu._launch_stream,
+                                    decode_cu._read_meta)
+        self._events, self.meta = [], []
+
+        def launch(*a, **k):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            self._launch(*a, **k)
+            e1.record()
+            self._events.append((e0, e1))
+
+        def read(meta):
+            out = self._read(meta)
+            self.meta.append(out)
+            return out
+
+        decode_cu._launch_stream, decode_cu._read_meta = launch, read
+        return self
+
+    def __exit__(self, *exc):
+        decode_cu._launch_stream, decode_cu._read_meta = (self._launch,
+                                                          self._read)
+
+    @property
+    def ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self._events]
+
+
+def large_stream(n_payloads: int, block: int = 65536):
+    """(raw, zlib level 6 stream) of the corpus's first payloads joined."""
+    raw = b"".join(make_silesia_like(n_payloads * block, block)[:n_payloads])
+    return raw, zlib.compress(raw, 6)
+
+
+def large_stages(raw, comp, reps, flags=FLAG_ZLIB | FLAG_VERIFY_ADLER32):
+    """``inflate_large`` into one caller-owned, pre-faulted buffer: the
+    device route stage by stage, then the host-parallel and the serial C++
+    engines.  Every run's bytes are held against ``raw``."""
+    buf = np.zeros(len(raw) + 64, np.uint8)
+    buf.fill(1)                         # touch every page before timing
+    want = np.frombuffer(raw, np.uint8)
+
+    def check(r, n, what):
+        if int(r) != 0 or n != len(raw) or not np.array_equal(buf[:n], want):
+            raise AssertionError(f"{what}: result {r}, {n} bytes, or bytes "
+                                 f"differ")
+        buf[:n] = 1
+
+    out = {"device": [], "host_parallel": [], "serial": []}
+    for r in range(reps + 1):           # the first run warms up
+        st = {}
+        l0 = decode_cu.launches
+        with timed_stream_launch() as tl:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, n = large.inflate_large(comp, flags, use_device=True,
+                                         out=buf, stats_out=st)
+            st["wall_s"] = time.perf_counter() - t0
+            st["launch_ms"] = tl.ms
+        st["launches"] = decode_cu.launches - l0
+        check(res, n, "device route")
+        if st["route"] != "device":
+            raise AssertionError(f"route {st['route']}, not the device")
+        st["tokens"], st["steps"] = tl.meta[-1][6], tl.meta[-1][1]
+        if r:
+            out["device"].append(st)
+    for r in range(reps):
+        st = {}
+        t0 = time.perf_counter()
+        res, n = large.inflate_large(comp, flags, use_device=False, out=buf,
+                                     stats_out=st)
+        st["wall_s"] = time.perf_counter() - t0
+        check(res, n, "host-parallel engine")
+        out["host_parallel"].append(st)
+        t0 = time.perf_counter()
+        res, n = native.native_inflate(comp, len(raw), flags, out=buf)
+        wall = time.perf_counter() - t0
+        check(res, n, "serial engine")
+        out["serial"].append({"wall_s": wall})
+    return out
+
+
+def deflate_stages(payloads, reps, level=6):
+    """``device_deflate`` stage by stage for both packs, and
+    ``native_deflate_batch`` beside them; all byte-identical."""
+    out = {"scan": [], "scatter": [], "host": []}
+    _, want = native.native_deflate_batch(payloads, level=level)
+    for r in range(reps + 1):           # the first run warms up
+        for pack in ("scan", "scatter"):
+            st = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = device_deflate(payloads, level=level, stats_out=st,
+                                 pack=pack)
+            st["wall_s"] = time.perf_counter() - t0
+            if got != want or st["device_fallbacks"]:
+                raise AssertionError(f"device_deflate({pack}) differs from "
+                                     f"the host encoder, or fell back")
+            if r:
+                out[pack].append(st)
+        t0 = time.perf_counter()
+        native.native_deflate_batch(payloads, level=level)
+        if r:
+            out["host"].append({"wall_s": time.perf_counter() - t0})
+    out["bytes_in"] = sum(map(len, payloads))
+    out["bytes_out"] = sum(map(len, want))
+    return out
+
+
+def _fmt(d):
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in d.items())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--streams", type=int, default=8192)
+    ap.add_argument("--streams", type=int, default=None,
+                    help="8192, or 2048 with --deflate")
     ap.add_argument("--block", type=int, default=65536)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--json", default=None)
     ap.add_argument("--probe", action="store_true")
+    ap.add_argument("--large", action="store_true")
+    ap.add_argument("--payloads", type=int, default=1024)
+    ap.add_argument("--deflate", action="store_true")
     a = ap.parse_args(argv)
+    if a.streams is None:
+        a.streams = 2048 if a.deflate else 8192
     if not torch.cuda.is_available():
         print("breakdown: needs a CUDA card", file=sys.stderr)
         return 1
@@ -274,6 +418,36 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {card}", flush=True)
+
+    def finish(rec):
+        if a.json:
+            with open(a.json, "w") as f:
+                json.dump(rec, f, indent=1)
+        print(json.dumps(rec))
+        return 0
+
+    if a.large:
+        t0 = time.perf_counter()
+        raw, comp = large_stream(a.payloads, a.block)
+        print(f"stream: {a.payloads} x {a.block} B joined, raw {len(raw)} B, "
+              f"compressed {len(comp)} B, made in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        rec = large_stages(raw, comp, a.reps)
+        for name in ("device", "host_parallel", "serial"):
+            for r, st in enumerate(rec[name]):
+                print(f"{name} rep {r}: {_fmt(st)}", flush=True)
+        return finish({"card": card, "payloads": a.payloads,
+                       "block": a.block, "raw_bytes": len(raw),
+                       "compressed_bytes": len(comp), "large": rec})
+    if a.deflate:
+        n = a.streams
+        payloads = make_silesia_like(n * a.block, a.block)[:n]
+        rec = deflate_stages(payloads, a.reps)
+        for name in ("scan", "scatter", "host"):
+            for r, st in enumerate(rec[name]):
+                print(f"{name} rep {r}: {_fmt(st)}", flush=True)
+        return finish({"card": card, "streams": n, "block": a.block,
+                       "deflate": rec})
     payloads, streams = corpus(a.streams, a.block)
     print(f"corpus: {a.streams} x {a.block} B, raw "
           f"{sum(map(len, payloads))} B", flush=True)

@@ -71,7 +71,7 @@ ZLIB_CM_DEFLATE = 8
 ZLIB_MAX_CINFO = 7          # 32K window max (reference zlib.h:70-86)
 ZLIB_FLAG_FDICT = 0x20
 
-# --- NumPy views of the tables (shared by the oracle and the device path) ---
+# --- NumPy views of the tables (shared by oracle / encoder / device path) ---
 LENGTH_BASE_NP = np.asarray(LENGTH_BASE, dtype=np.int32)
 LENGTH_EXTRA_NP = np.asarray(LENGTH_EXTRA, dtype=np.int32)
 DIST_BASE_NP = np.asarray(DIST_BASE, dtype=np.int32)
@@ -79,3 +79,21 @@ DIST_EXTRA_NP = np.asarray(DIST_EXTRA, dtype=np.int32)
 CODELEN_ORDER_NP = np.asarray(CODELEN_ORDER, dtype=np.int32)
 FIXED_LITLEN_LENGTHS_NP = np.asarray(FIXED_LITLEN_LENGTHS, dtype=np.int32)
 FIXED_DIST_LENGTHS_NP = np.asarray(FIXED_DIST_LENGTHS, dtype=np.int32)
+
+# Reverse mapping: match length (3..258) -> length symbol (257..285),
+# and extra-bit payload.  Used by the encoder.
+_len_to_sym = np.zeros(MAX_MATCH + 1, dtype=np.int32)
+for _s, (_base, _eb) in enumerate(zip(LENGTH_BASE, LENGTH_EXTRA)):
+    _hi = _base + (1 << _eb) - 1
+    if _s == len(LENGTH_BASE) - 1:      # symbol 285: length 258 only
+        _hi = _base
+    _len_to_sym[_base : min(_hi, MAX_MATCH) + 1] = 257 + _s
+_len_to_sym[MAX_MATCH] = 285
+LENGTH_TO_SYMBOL_NP = _len_to_sym
+
+# Reverse mapping: distance (1..32768) -> distance symbol (0..29).
+_dist_to_sym = np.zeros(MAX_DIST + 1, dtype=np.int32)
+for _s, (_base, _eb) in enumerate(zip(DIST_BASE, DIST_EXTRA)):
+    _hi = _base + (1 << _eb) - 1
+    _dist_to_sym[_base : min(_hi, MAX_DIST) + 1] = _s
+DIST_TO_SYMBOL_NP = _dist_to_sym

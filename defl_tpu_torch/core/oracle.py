@@ -161,6 +161,8 @@ class InflateEngine:
         self.reader = _ChunkBitReader()
         self._gen = self._run()
         self._finished: Result | None = None
+        self._started = False
+        self._input_pos_override: int | None = None
 
     # -- input management (≙ infl_include, mem.c:114-216) --------------------
     def include(self, data) -> Result:
@@ -185,13 +187,30 @@ class InflateEngine:
 
     @property
     def input_pos(self) -> int:
+        if self._input_pos_override is not None:
+            return self._input_pos_override
         return self.reader.consumed_bytes()
+
+    def adopt_native_result(self, out: bytes, in_pos: int) -> None:
+        """Install a completed decode produced by the C++ fast path
+        (api.InflateStream.run routes fresh contiguous one-shot decodes
+        through dt_inflate_pos, ≙ infl_buf being the reference's fastest
+        path, infl.h:125-145).  Only ever called on a fresh engine with a
+        successful (OK) result; resumable and error cases stay on the
+        generator."""
+        if self._started or self._finished is not None:
+            raise RuntimeError("adopt_native_result needs a fresh engine")
+        self.out.extend(out)
+        self._input_pos_override = int(in_pos)
+        self._finished = Result.OK
+        self._started = True
 
     # -- decode loop ---------------------------------------------------------
     def step(self) -> Result:
         """Advance until completion, input exhaustion, or output full."""
         if self._finished is not None:
             return self._finished
+        self._started = True
         try:
             r = next(self._gen)
         except StopIteration as stop:  # pragma: no cover - defensive

@@ -45,6 +45,14 @@
 //   - the token buffer arrives zero-filled and only real tokens are
 //     stored; the largest row any lane wrote comes back through an
 //     atomicMax, so the whole call needs one launch and one host read.
+// Shared-input mode (runtime/large.py's split decode of one huge stream):
+// every lane reads the same body, so a lane's row is words + lane *
+// row_stride with row_stride 0 and W the body's length; bitpos, nbits and
+// limit are then positions in the whole stream (below 2^31 - 2^22 bits, so
+// every cursor, and every word index derived from one by a right shift,
+// fits an int), a lane is DONE at the first block header at or past its
+// limit, reach is per lane (0 for the lane at the stream's head), and
+// in_base rebases a stored run's offset to the lane's own segment.
 // Consume-only-on-success is kept: a step that lacks bits leaves bitpos,
 // state and tokens untouched and marks the lane UNFINISHED, which is what
 // makes EFULL and UNFINISHED lanes resumable.
@@ -843,8 +851,9 @@ __device__ __forceinline__ void build_step(Lane& L, StreamMem& M,
 __device__ __forceinline__ void stream_lane(
     uint32_t* smem, int slot, int lanes, int lane, int32_t* st,
     uint32_t* lens, int32_t* count, int32_t* first, int32_t* offs,
-    int32_t* maxlen, uint32_t* syms, const uint32_t* words, int W, int vec,
-    uint32_t* tok, meta_t* meta, int N, int n_steps, int has_dict) {
+    int32_t* maxlen, uint32_t* syms, const uint32_t* words, size_t row_stride,
+    int W, int vec, uint32_t* tok, meta_t* meta, int N, int n_steps,
+    int has_dict) {
   const size_t n = (size_t)N;
   Lane L;
   L.load_state(st + lane, n);
@@ -855,7 +864,7 @@ __device__ __forceinline__ void stream_lane(
   M.lut = reinterpret_cast<uint16_t*>(smem + (size_t)LANE_WORDS * lanes) +
           slot;
   M.stride = lanes;
-  M.in = Row{words + (size_t)lane * W, W, vec != 0};
+  M.in = Row{words + (size_t)lane * row_stride, W, vec != 0};
   count += (size_t)lane * 48;
   first += (size_t)lane * 48;
   offs += (size_t)lane * 48;
@@ -938,8 +947,8 @@ __device__ __forceinline__ void stream_lane(
 // ---- one lane of decode_chunk -----------------------------------------------
 
 __device__ __forceinline__ void chunk_lane(
-    int lane, int32_t* st, uint32_t* lens, const uint32_t* words, int W,
-    int vec, const int32_t* bound, const int32_t* adjoff,
+    int lane, int32_t* st, uint32_t* lens, const uint32_t* words,
+    size_t row_stride, int W, int vec, const int32_t* bound, const int32_t* adjoff,
     const int32_t* maxlen, const uint32_t* syms, uint32_t* tok, int N, int K,
     int has_dict) {
   const size_t n = (size_t)N;
@@ -954,7 +963,7 @@ __device__ __forceinline__ void chunk_lane(
   for (int i = 0; i < 48; ++i) M.bnd[i] = bound[i * n + lane];
 #pragma unroll
   for (int i = 0; i < 3; ++i) M.mlen[i] = maxlen[i * n + lane];
-  M.in = Row{words + (size_t)lane * W, W, vec != 0};
+  M.in = Row{words + (size_t)lane * row_stride, W, vec != 0};
   M.open(L.bitpos >> 5);
 
   int k = 0;
@@ -979,8 +988,9 @@ __global__ void __launch_bounds__(256) decode_stream_kernel(
     int32_t* __restrict__ st, uint32_t* __restrict__ lens,
     int32_t* __restrict__ count, int32_t* __restrict__ first,
     int32_t* __restrict__ offs, int32_t* __restrict__ maxlen,
-    uint32_t* __restrict__ syms, const uint32_t* __restrict__ words, int W,
-    int vec, uint32_t* __restrict__ tok, meta_t* __restrict__ meta,
+    uint32_t* __restrict__ syms, const uint32_t* __restrict__ words,
+    size_t row_stride, int W, int vec, uint32_t* __restrict__ tok,
+    meta_t* __restrict__ meta,
     const int32_t* __restrict__ order, int N, int n_steps, int has_dict,
     int lanes_per_warp) {
   extern __shared__ uint32_t smem[];
@@ -993,19 +1003,20 @@ __global__ void __launch_bounds__(256) decode_stream_kernel(
   if (blockIdx.x * lanes + slot >= N) return;
   const int lane = order[blockIdx.x * lanes + slot];
   stream_lane(smem, slot, lanes, lane, st, lens, count, first, offs, maxlen,
-              syms, words, W, vec, tok, meta, N, n_steps, has_dict);
+              syms, words, row_stride, W, vec, tok, meta, N, n_steps,
+              has_dict);
 }
 
 __global__ void __launch_bounds__(THREADS) decode_chunk_kernel(
     int32_t* __restrict__ st, uint32_t* __restrict__ lens,
-    const uint32_t* __restrict__ words, int W, int vec,
+    const uint32_t* __restrict__ words, size_t row_stride, int W, int vec,
     const int32_t* __restrict__ bound, const int32_t* __restrict__ adjoff,
     const int32_t* __restrict__ maxlen, const uint32_t* __restrict__ syms,
     uint32_t* __restrict__ tok, int N, int K, int has_dict) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= N) return;
-  chunk_lane(lane, st, lens, words, W, vec, bound, adjoff, maxlen, syms, tok,
-             N, K, has_dict);
+  chunk_lane(lane, st, lens, words, row_stride, W, vec, bound, adjoff, maxlen,
+             syms, tok, N, K, has_dict);
 }
 
 // 16-byte loads need rows that start on 16-byte boundaries
@@ -1029,10 +1040,12 @@ inline int rows_vectorise(const void* words, int W) {
 // words, must arrive zeroed; order [N] is a permutation of the lanes, the order in which
 // threads take them.  A block has `threads` threads (a multiple of 32, at
 // most 256); the first `lanes_per_warp` of each warp own a lane, and a
-// block's lanes share LANE_BYTES each of dynamic shared memory.
+// block's lanes share LANE_BYTES each of dynamic shared memory.  words is
+// [N, W] with `shared` 0, or one body [W] that every lane reads with
+// `shared` 1.
 extern "C" int decode_stream_launch(
     void* st, void* lens, void* count, void* first, void* offs, void* maxlen,
-    void* syms, const void* words, int W, void* tok, void* meta,
+    void* syms, const void* words, int W, int shared, void* tok, void* meta,
     const void* order, int N, int n_steps, int has_dict, int threads,
     int lanes_per_warp, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
@@ -1056,14 +1069,14 @@ extern "C" int decode_stream_launch(
   decode_stream_kernel<<<blocks, threads, shmem, (cudaStream_t)stream>>>(
       (int32_t*)st, (uint32_t*)lens, (int32_t*)count, (int32_t*)first,
       (int32_t*)offs, (int32_t*)maxlen, (uint32_t*)syms,
-      (const uint32_t*)words, W, rows_vectorise(words, W), (uint32_t*)tok,
-      (meta_t*)meta, (const int32_t*)order, N, n_steps, has_dict,
+      (const uint32_t*)words, shared ? (size_t)0 : (size_t)W, W,
+      rows_vectorise(words, W), (uint32_t*)tok, (meta_t*)meta, (const int32_t*)order, N, n_steps, has_dict,
       lanes_per_warp);
   return (int)cudaGetLastError();
 }
 
 extern "C" int decode_chunk_launch(void* st, void* lens, const void* words,
-                                   int W, const void* bound,
+                                   int W, int shared, const void* bound,
                                    const void* adjoff, const void* maxlen,
                                    const void* syms, void* tok, int N, int K,
                                    int has_dict, void* stream, int device) {
@@ -1072,8 +1085,9 @@ extern "C" int decode_chunk_launch(void* st, void* lens, const void* words,
   if (N <= 0) return 0;
   const int blocks = (N + THREADS - 1) / THREADS;
   decode_chunk_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      (int32_t*)st, (uint32_t*)lens, (const uint32_t*)words, W,
-      rows_vectorise(words, W), (const int32_t*)bound,
+      (int32_t*)st, (uint32_t*)lens, (const uint32_t*)words,
+      shared ? (size_t)0 : (size_t)W, W, rows_vectorise(words, W),
+      (const int32_t*)bound,
       (const int32_t*)adjoff, (const int32_t*)maxlen, (const uint32_t*)syms,
       (uint32_t*)tok, N, K, has_dict);
   return (int)cudaGetLastError();

@@ -39,13 +39,17 @@ def bitrev16(x: torch.Tensor) -> torch.Tensor:
 def peek32(words: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
     """32-bit LSB-first window at a per-lane bit offset.
 
-    words: int64 [N, W] u32 values; bitpos: int [N].  Word indices clamp
-    to the row, as ``defl_tpu.ops.bitio.peek32`` clips them.  Returns
-    int64 [N].
+    words: int64 [N, W] u32 values, or [1, W] for one row that every
+    lane reads; bitpos: int [N].  Word indices clamp to the row, as
+    ``defl_tpu.ops.bitio.peek32`` clips them.  Returns int64 [N].
     """
     last = words.shape[1] - 1
     widx = (bitpos.to(torch.int64) >> 5).clamp(0, last)
-    pair = words.gather(1, torch.stack([widx, (widx + 1).clamp(max=last)], 1))
+    idx = torch.stack([widx, (widx + 1).clamp(max=last)], 1)
+    if words.shape[0] == 1 and bitpos.shape[0] != 1:
+        pair = words[0][idx]
+    else:
+        pair = words.gather(1, idx)
     # a 64-bit pair shifted right by < 32: the low 32 bits of the result
     # are the window; the sign fill of the arithmetic shift never reaches them
     return ((pair[:, 0] | (pair[:, 1] << 32)) >> (bitpos & 31)) & MASK32

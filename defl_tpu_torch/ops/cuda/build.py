@@ -81,11 +81,11 @@ def load():
         lib = ctypes.CDLL(path)
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.decode_stream_launch.restype = i
-        lib.decode_stream_launch.argtypes = [p, p, p, p, p, p, p, p, i, p, p,
-                                             p, i, i, i, i, i, p, i]
+        lib.decode_stream_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, p,
+                                             p, p, i, i, i, i, i, p, i]
         lib.decode_chunk_launch.restype = i
-        lib.decode_chunk_launch.argtypes = [p, p, p, i, p, p, p, p, p, i, i,
-                                            i, p, i]
+        lib.decode_chunk_launch.argtypes = [p, p, p, i, i, p, p, p, p, p, i,
+                                            i, i, p, i]
         lib.adler32_batch_launch.restype = i
         lib.adler32_batch_launch.argtypes = [p, ll, i, i, p, p, p, i]
         _lib = lib

@@ -30,6 +30,12 @@ run of 16-byte vectors):
     words  [N, W]      packed input (u32 bits), >= 5 zero words past nbits;
                        decode_tokens pads W to a multiple of 4 so that
                        every row starts on a 16-byte boundary
+        or [1, W]      shared input: one body that every lane reads (the
+                       split decode of one huge stream, runtime/large.py);
+                       bitpos, nbits and limit are then positions in the
+                       whole stream and in_base (bytes) is the lane's
+                       segment start, which a stored run's offset is taken
+                       from
     tok    [rows, N]   two token slots per step (u32 bits), NOP = 0
   decode_chunk only:
     bound  [48, N]     left-justified code-space boundaries, kind*16+len
@@ -89,6 +95,12 @@ _OK, _ERR, _UNF, _EFULL = (int(Result.OK), int(Result.ERR),
                            int(Result.UNFINISHED), int(Result.EFULL))
 
 
+def _words_rows(words, N: int) -> int:
+    """Rows a ``words`` tensor must have for N lanes: N, or 1 when it is
+    one shared body (for one lane the two are the same thing)."""
+    return 1 if words.dim() == 2 and words.shape[0] == 1 else N
+
+
 def _check(st_pk, lens_pk, words, bound, adjoff, maxlen, syms, tok_out, K):
     """Refuse what the kernel does not take: one device, int32, the
     layout above, contiguous."""
@@ -97,7 +109,7 @@ def _check(st_pk, lens_pk, words, bound, adjoff, maxlen, syms, tok_out, K):
     N = st_pk.shape[1] if st_pk.dim() == 2 else -1
     want = {"st_pk": (st_pk, (NROWS, N)),
             "lens": (lens_pk, (ib.LENS_WORDS, N)),
-            "words": (words, (N, words.shape[-1])),
+            "words": (words, (_words_rows(words, N), words.shape[-1])),
             "bound": (bound, (48, N)), "adjoff": (adjoff, (48, N)),
             "maxlen": (maxlen, (3, N)), "syms": (syms, (tables.SYMS_WORDS, N))}
     if tok_out is not None:
@@ -141,7 +153,8 @@ def decode_chunk(st_pk, lens_pk, words, bound, adjoff, maxlen, syms,
         tok_out = torch.empty((2 * K, N), dtype=torch.int32, device=dev)
     rc = lib.decode_chunk_launch(
         st_pk.data_ptr(), lens_pk.data_ptr(), words.data_ptr(),
-        words.shape[1], bound.data_ptr(), adjoff.data_ptr(),
+        words.shape[1], int(words.shape[0] != N), bound.data_ptr(),
+        adjoff.data_ptr(),
         maxlen.data_ptr(), syms.data_ptr(), tok_out.data_ptr(), N, K,
         int(bool(has_dict)), torch.cuda.current_stream(dev).cuda_stream,
         dev.index if dev.index is not None else torch.cuda.current_device())
@@ -569,7 +582,7 @@ def _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words,
             "count": (count, (N, 3, 16)), "first": (first, (N, 3, 16)),
             "offs": (offs, (N, 3, 16)), "maxlen": (maxlen, (N, 3)),
             "syms": (syms, (N, tables.SYMS_WORDS)),
-            "words": (words, (N, words.shape[-1])),
+            "words": (words, (_words_rows(words, N), words.shape[-1])),
             "tok": (tok, (2 * n_steps, N)), "meta": (meta, (META_WORDS,)),
             "order": (order, (N,))}
     for name, (t, shape) in want.items():
@@ -586,7 +599,8 @@ def _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words,
         st_pk.data_ptr(), lens.data_ptr(), count.data_ptr(),
         first.data_ptr(), offs.data_ptr(), maxlen.data_ptr(),
         syms.data_ptr(), words.data_ptr(), words.shape[1],
-        tok.data_ptr(), meta.data_ptr(), order.data_ptr(), N,
+        int(words.shape[0] != N), tok.data_ptr(), meta.data_ptr(),
+        order.data_ptr(), N,
         n_steps, int(bool(has_dict)), int(threads), int(lanes_per_warp),
         torch.cuda.current_stream(dev).cuda_stream,
         dev.index if dev.index is not None else torch.cuda.current_device())
@@ -601,6 +615,17 @@ def _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words,
 def _read_meta(meta):
     """The call's one sync with the host: the launch's totals."""
     return meta.tolist()
+
+
+def pad_body(body: np.ndarray) -> np.ndarray:
+    """A shared body (uint8 ndarray) with at least ``PAD_WORDS`` zero words
+    behind it, up to a multiple of 16 bytes: what the kernels read past a
+    stream's end, added on the host so that no pass on the device copies
+    the body."""
+    n = body.size
+    out = np.zeros(-(-(n + 4 * PAD_WORDS) // 16) * 16, np.uint8)
+    out[:n] = body
+    return out
 
 
 def _decode_stream(words, nbits, cap, limit, dict_reach, in_base, st, ck,
@@ -623,9 +648,10 @@ def _decode_stream(words, nbits, cap, limit, dict_reach, in_base, st, ck,
     meta = torch.zeros(META_WORDS, dtype=torch.int64, device=dev)
     # threads take the lanes by the input they have left, most first: a
     # warp's lanes then have alike work (and alike data), so they branch
-    # alike and end together, and the longest lanes start first
+    # alike and end together, and the longest lanes start first.  A lane
+    # of a split decode ends at its limit, not at the shared body's end
     left = torch.where(st_pk[R_STATUS] == ib.STATUS_RUNNING,
-                       nbits - st_pk[R_BITPOS], -1)
+                       torch.minimum(limit, nbits) - st_pk[R_BITPOS], -1)
     order = torch.argsort(left, descending=True, stable=True).to(torch.int32)
     _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words, tok,
                    meta, order, n_steps, has_dict)
@@ -654,6 +680,16 @@ def decode_tokens(words, nbits, zflag, cap, *, T: int, K: int | None = None,
 
     words: packed streams [N, W], a uint32 ndarray (as pack_streams
     makes it) or an int32 tensor of the same bits; nbits/zflag/cap: [N].
+    shared_input: every lane reads the same stream: words is [W] or
+    [1, W]; bitpos, start_bit, limit and nbits are then positions in the
+    whole stream, a lane stops at the first block boundary at or past its
+    ``limit``, ``dict_reach`` [N] is each lane's back-reference reach
+    before its own start, and ``in_base`` [N] (bytes) rebases stored-run
+    token offsets to the lane's segment (runtime/large.py).  An ndarray
+    body (uint32 words, or the uint8 bytes themselves) is padded on the
+    host before it goes up; a tensor is taken as it
+    is when its length is a multiple of 4 words (the caller pads before
+    the upload: a pad here would copy the whole body on the device).
     Everything runs on ``device``: by default where a ``words`` tensor
     lies, and on CUDA for an ndarray, like every other entry point.
     Returns (tokens int32 [rows, N] holding u32 token bits, carry dict);
@@ -671,12 +707,11 @@ def decode_tokens(words, nbits, zflag, cap, *, T: int, K: int | None = None,
     K defaults to 512 on CUDA and 128 on the CPU, where the twin pays for
     every step whether or not a lane still works.
     """
-    if shared_input:
-        raise NotImplementedError(
-            "shared_input (runtime/large.py's split decode) is not ported "
-            "yet")
     if isinstance(words, np.ndarray):
-        words = torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
+        words = np.ascontiguousarray(words)
+        if shared_input:    # the body's bytes, whatever its dtype
+            words = pad_body(words.reshape(-1).view(np.uint8))
+        words = torch.from_numpy(words.view(np.int32))
         dev = torch.device("cuda" if device is None else device)
     else:
         dev = torch.device(device) if device is not None else words.device
@@ -684,9 +719,15 @@ def decode_tokens(words, nbits, zflag, cap, *, T: int, K: int | None = None,
         K = 512 if dev.type == "cuda" else 128
     N = nbits.shape[0]
     as32 = lambda x: torch.as_tensor(x, device=dev).to(torch.int32)
-    # >= PAD_WORDS zero words, up to a row length that is a multiple of 4
-    pad = PAD_WORDS + (-(words.shape[1] + PAD_WORDS)) % 4
-    words = F.pad(words.to(dev), (0, pad))
+    if shared_input:
+        words = words.reshape(1, -1).to(dev)
+        if words.shape[1] % 4:
+            words = F.pad(words, (0, (-words.shape[1]) % 4))
+    else:
+        # >= PAD_WORDS zero words, up to a row length that is a multiple
+        # of 4
+        pad = PAD_WORDS + (-(words.shape[1] + PAD_WORDS)) % 4
+        words = F.pad(words.to(dev), (0, pad))
     nbits, zflag, cap = as32(nbits), as32(zflag), as32(cap)
     limit = (torch.full((N,), 1 << 30, dtype=torch.int32, device=dev)
              if limit is None else as32(limit))

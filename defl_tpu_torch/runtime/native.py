@@ -6,9 +6,11 @@ an edited source builds anew and a stale library is never loaded.  A
 failed build raises with g++'s own message: the port has no resolver or
 host engine to carry on with instead.
 
-Only the entry points the port calls are bound: ``dt_resolve_tokens``
-(pass 2 of the device inflate), ``dt_inflate_batch`` (host retry of lanes
-that ran out of steps) and ``dt_adler32``.
+Every entry point of the library is bound, under the names of the JAX
+package's bindings.  Out buffers are checked and refused with
+``ValueError``.  ``native_deflate_fields`` hands each call a pinned
+buffer of its own (PyTorch's caching host allocator keeps the pages for
+the next call), so concurrent encodes never share field storage.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _u64p = ctypes.POINTER(ctypes.c_uint64)
+_i64p = ctypes.POINTER(ctypes.c_int64)
 _pptr = ctypes.POINTER(ctypes.c_void_p)
 
 
@@ -88,10 +91,53 @@ def load():
             _u8p, ctypes.c_uint64, ctypes.c_int64,
             _u8p, ctypes.c_uint64, ctypes.c_uint64,
             _i32p, _i32p, _u8p, ctypes.c_uint32, ctypes.c_int]
+        lib.dt_crc32.restype = ctypes.c_uint32
+        lib.dt_crc32.argtypes = [_u8p, ctypes.c_uint64, ctypes.c_uint32]
+        lib.dt_inflate.restype = ctypes.c_int
+        lib.dt_inflate.argtypes = [_u8p, ctypes.c_uint64, _u8p,
+                                   ctypes.c_uint64, _u64p, ctypes.c_int]
+        lib.dt_inflate_pos.restype = ctypes.c_int
+        lib.dt_inflate_pos.argtypes = [_u8p, ctypes.c_uint64, _u8p,
+                                       ctypes.c_uint64, _u64p, _u64p,
+                                       ctypes.c_int]
+        lib.dt_deflate.restype = ctypes.c_int
+        lib.dt_deflate.argtypes = [_u8p, ctypes.c_uint64, _u8p,
+                                   ctypes.c_uint64, _u64p, ctypes.c_int,
+                                   ctypes.c_int]
         lib.dt_inflate_batch.restype = ctypes.c_int
         lib.dt_inflate_batch.argtypes = [
             _pptr, _u64p, _pptr, _u64p, _u64p, _i32p, ctypes.c_int64,
             ctypes.c_int, ctypes.c_int]
+        lib.dt_deflate_batch.restype = ctypes.c_int
+        lib.dt_deflate_batch.argtypes = [
+            _pptr, _u64p, _pptr, _u64p, _u64p, _i32p, ctypes.c_int64,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        lib.dt_find_block_start.restype = ctypes.c_int64
+        lib.dt_find_block_start.argtypes = [_u8p, ctypes.c_uint64,
+                                            ctypes.c_int64, ctypes.c_int64]
+        lib.dt_inflate_span.restype = ctypes.c_int
+        lib.dt_inflate_span.argtypes = [
+            _u8p, ctypes.c_uint64, ctypes.c_int64, ctypes.c_int64,
+            _u8p, ctypes.c_uint64, ctypes.c_uint64, _u64p, _i64p]
+        lib.dt_stitch.restype = ctypes.c_int
+        lib.dt_stitch.argtypes = [
+            _u8p, ctypes.c_uint64, _i64p, ctypes.c_int64,
+            _u32p, ctypes.c_int64, _i32p, _i32p, _i32p, _i64p,
+            _u8p, ctypes.c_uint64, _u64p, _i64p]
+        lib.dt_deflate_fields_batch.restype = ctypes.c_int
+        lib.dt_deflate_fields_batch.argtypes = [
+            _pptr, _u64p, _u32p, ctypes.c_int64, _i64p, _i64p, _u32p, _i32p,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        lib.dt_encode_compact.restype = ctypes.c_int
+        lib.dt_encode_compact.argtypes = [
+            _u32p, _u32p, ctypes.c_int64, ctypes.c_int64, _i64p, _u32p,
+            _pptr, _u64p, _u64p, ctypes.c_int]
+        lib.dt_inflate_large.restype = ctypes.c_int
+        lib.dt_inflate_large.argtypes = [
+            _u8p, ctypes.c_uint64, ctypes.c_int64, ctypes.c_int,
+            _u8p, ctypes.c_uint64, _u64p, _i64p, _pptr]
+        lib.dt_large_free.restype = None
+        lib.dt_large_free.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
 
@@ -147,38 +193,331 @@ def native_resolve_tokens(tokens, input_words, dst_len, C: int,
     return out
 
 
-def native_inflate_batch(payloads, dst_capacities, flags: int = 1,
-                         n_threads=None):
-    """Multithreaded batch host inflate; (list of Result, list of bytes)."""
+def _threads(n_threads) -> int:
+    return _default_threads() if n_threads is None else int(n_threads)
+
+
+def _out_u8(out, what: str = "out"):
+    """A caller-owned output buffer as (pointer, size); refuses what the
+    library cannot write into."""
+    if not (isinstance(out, np.ndarray) and out.dtype == np.uint8
+            and out.ndim == 1 and out.flags.c_contiguous
+            and out.flags.writeable):
+        raise ValueError(f"{what} must be a writable C-contiguous 1-D uint8 "
+                         f"array")
+    return out.ctypes.data_as(_u8p), out.size
+
+
+def _in_u8(body):
+    """A read-only uint8 ndarray as a pointer (no copy)."""
+    if not (isinstance(body, np.ndarray) and body.dtype == np.uint8
+            and body.ndim == 1 and body.flags.c_contiguous):
+        raise ValueError("body must be a C-contiguous 1-D uint8 array")
+    return ctypes.cast(body.ctypes.data, _u8p)
+
+
+def native_inflate(data: bytes, dst_capacity: int, flags: int = 1,
+                   out=None):
+    """One-shot native inflate; (Result, output).
+
+    With ``out`` (a writable uint8 ndarray, the caller-owned output
+    buffer, ≙ the reference's ``infl_init(dst, dstlen)`` contract) the
+    decode writes in place and returns (Result, bytes_written) with no
+    copy and no allocation."""
     lib = load()
+    src = _u8(data)
+    outlen = ctypes.c_uint64(0)
+    if out is not None:
+        ptr, size = _out_u8(out)
+        cap = min(int(dst_capacity), size)
+        r = lib.dt_inflate(src, len(data), ptr, cap, ctypes.byref(outlen),
+                           flags)
+        return Result(r), int(outlen.value)
+    dst = (ctypes.c_uint8 * max(dst_capacity, 1))()
+    r = lib.dt_inflate(src, len(data), dst, dst_capacity,
+                       ctypes.byref(outlen), flags)
+    return Result(r), ctypes.string_at(dst, outlen.value)
+
+
+def native_inflate_pos(data: bytes, dst_capacity: int,
+                       flags: int = 1) -> tuple[Result, bytes, int]:
+    """One-shot native inflate reporting the consumed input position
+    (reference infl_input_pos semantics); (Result, output, in_pos)."""
+    lib = load()
+    src = _u8(data)
+    dst = (ctypes.c_uint8 * max(dst_capacity, 1))()
+    outlen = ctypes.c_uint64(0)
+    in_pos = ctypes.c_uint64(0)
+    r = lib.dt_inflate_pos(src, len(data), dst, dst_capacity,
+                           ctypes.byref(outlen), ctypes.byref(in_pos), flags)
+    return Result(r), ctypes.string_at(dst, outlen.value), int(in_pos.value)
+
+
+def native_deflate(data: bytes, level: int = 6, flags: int = 1) -> bytes:
+    lib = load()
+    src = _u8(data)
+    cap = len(data) + len(data) // 2 + 1024
+    dst = (ctypes.c_uint8 * cap)()
+    outlen = ctypes.c_uint64(0)
+    r = lib.dt_deflate(src, len(data), dst, cap, ctypes.byref(outlen),
+                       level, flags)
+    if r != 0:
+        raise RuntimeError(f"native deflate failed: {Result(r).name}")
+    return ctypes.string_at(dst, outlen.value)
+
+
+def _src_arrays(payloads):
+    """payloads -> (keepalive arrays, pointer array, length array)."""
     n = len(payloads)
-    caps = ([int(dst_capacities)] * n if isinstance(dst_capacities, int)
-            else list(dst_capacities))
-    srcs = [np.frombuffer(bytes(p), np.uint8) if p else
+    srcs = [np.frombuffer(bytes(p), np.uint8) if len(p) else
             np.zeros(1, np.uint8) for p in payloads]
+    ptrs = (ctypes.c_void_p * n)(*[s.ctypes.data for s in srcs])
+    lens = (ctypes.c_uint64 * n)(*[len(p) for p in payloads])
+    return srcs, ptrs, lens
+
+
+def _batch_call(fn, payloads, caps, *extra, n_threads=None):
+    n = len(payloads)
+    srcs, src_ptrs, srclens = _src_arrays(payloads)
     dsts = [np.zeros(max(c, 1), np.uint8) for c in caps]
-    src_ptrs = (ctypes.c_void_p * n)(
-        *[s.ctypes.data_as(ctypes.c_void_p).value for s in srcs])
-    dst_ptrs = (ctypes.c_void_p * n)(
-        *[d.ctypes.data_as(ctypes.c_void_p).value for d in dsts])
-    srclens = (ctypes.c_uint64 * n)(*[len(p) for p in payloads])
+    dst_ptrs = (ctypes.c_void_p * n)(*[d.ctypes.data for d in dsts])
     dstcaps = (ctypes.c_uint64 * n)(*[len(d) for d in dsts])
     dstlens = (ctypes.c_uint64 * n)()
     results = (ctypes.c_int32 * n)()
-    lib.dt_inflate_batch(src_ptrs, srclens, dst_ptrs, dstcaps, dstlens,
-                         results, n, flags,
-                         _default_threads() if n_threads is None
-                         else n_threads)
+    fn(src_ptrs, srclens, dst_ptrs, dstcaps, dstlens, results, n, *extra,
+       _threads(n_threads))
+    del srcs
     outs = [dsts[i][: dstlens[i]].tobytes() for i in range(n)]
     return [Result(int(r)) for r in results], outs
 
 
-def native_adler32(data, start: int = 1) -> int:
-    """adler32 of bytes-like data or of an ndarray's bytes (no copy when
-    the array is contiguous)."""
+def native_deflate_batch(payloads, level: int = 6, flags: int = 1,
+                         n_threads=None):
+    """Multithreaded batch compress; (list of Result, list of bytes)."""
+    caps = [len(p) + len(p) // 2 + 1024 for p in payloads]
+    return _batch_call(load().dt_deflate_batch, payloads, caps, level, flags,
+                       n_threads=n_threads)
+
+
+def native_inflate_batch(payloads, dst_capacities, flags: int = 1,
+                         n_threads=None):
+    """Multithreaded batch host inflate; (list of Result, list of bytes)."""
+    caps = ([int(dst_capacities)] * len(payloads)
+            if isinstance(dst_capacities, int) else list(dst_capacities))
+    return _batch_call(load().dt_inflate_batch, payloads, caps, flags,
+                       n_threads=n_threads)
+
+
+def fields_width(payloads) -> int:
+    """The field budget F of a batch: one field per input byte at worst
+    (all literals, or stored) plus the block headers, in multiples of
+    8192 (rows past ``n_fields`` are never read)."""
+    worst = max((len(p) for p in payloads), default=0) + 512
+    return max(1024, -(-worst // 8192) * 8192)
+
+
+def native_deflate_fields(payloads, level: int = 6, F: int | None = None,
+                          n_threads=None, pin: bool = False):
+    """Host half of the hybrid encode (dt_deflate_fields_batch): LZ77
+    matching, Huffman trees and block layout per payload, exported as
+    (value, nbits) field arrays for the bit-pack on the card
+    (ops/huffman_pack.py).
+
+    Returns (fields u32 [N, F], n_fields i64 [N], total_bits i64 [N],
+    adlers u32 [N], results); results[i] is EFULL when payload i
+    overflowed F (that lane goes to the serial encoder).
+
+    ``fields`` is this call's own buffer.  With ``pin`` it is page-locked
+    memory from PyTorch's caching host allocator: the upload can be
+    asynchronous, and a later call reuses the pages instead of faulting
+    fresh ones in.  The array keeps the buffer alive.
+    """
     lib = load()
+    n = len(payloads)
+    if F is None:
+        F = fields_width(payloads)
+    if pin:
+        import torch
+
+        fields = torch.empty((n, F), dtype=torch.int32,
+                             pin_memory=True).numpy().view(np.uint32)
+    else:
+        fields = np.empty((n, F), np.uint32)
+    n_fields = np.zeros(n, np.int64)
+    total_bits = np.zeros(n, np.int64)
+    adlers = np.zeros(n, np.uint32)
+    results = (ctypes.c_int32 * n)()
+    srcs, src_ptrs, srclens = _src_arrays(payloads)
+    lib.dt_deflate_fields_batch(
+        src_ptrs, srclens, fields.ctypes.data_as(_u32p), F,
+        n_fields.ctypes.data_as(_i64p), total_bits.ctypes.data_as(_i64p),
+        adlers.ctypes.data_as(_u32p), results, n, level, _threads(n_threads))
+    del srcs
+    return (fields, n_fields, total_bits, adlers,
+            [Result(int(r)) for r in results])
+
+
+def native_encode_compact(fields, slots, n_fields, final_lo, total_bits,
+                          n_threads=None):
+    """Gather the used word slots of the lockstep pack into dense per-lane
+    compressed bodies (dt_encode_compact).  Returns a list of bytes (raw
+    deflate bodies, no zlib framing)."""
+    lib = load()
+    fields = np.ascontiguousarray(fields, dtype=np.uint32)
+    slots = np.ascontiguousarray(slots, dtype=np.uint32)
+    n_fields = np.ascontiguousarray(n_fields, dtype=np.int64)
+    final_lo = np.ascontiguousarray(final_lo, dtype=np.uint32)
+    N, F = fields.shape
+    if slots.shape != (N, F) or n_fields.shape != (N,) \
+            or final_lo.shape != (N,) or len(total_bits) != N:
+        raise ValueError(f"slots must be [{N}, {F}] and n_fields, final_lo, "
+                         f"total_bits [{N}]")
+    caps = [(int(tb) + 7) // 8 for tb in total_bits]
+    dsts = [np.empty(max(c, 1), np.uint8) for c in caps]
+    dst_ptrs = (ctypes.c_void_p * N)(*[d.ctypes.data for d in dsts])
+    dstcaps = (ctypes.c_uint64 * N)(*[len(d) for d in dsts])
+    dstlens = (ctypes.c_uint64 * N)()
+    r = lib.dt_encode_compact(
+        fields.ctypes.data_as(_u32p), slots.ctypes.data_as(_u32p), N, F,
+        n_fields.ctypes.data_as(_i64p), final_lo.ctypes.data_as(_u32p),
+        dst_ptrs, dstcaps, dstlens, _threads(n_threads))
+    if r != 0:
+        raise RuntimeError("encode compact overflow")
+    return [dsts[i][: dstlens[i]].tobytes() for i in range(N)]
+
+
+def _u8_view(data):
+    """(pointer, length, keepalive) of an ndarray's bytes, without a copy
+    when it is contiguous, or of bytes-like data."""
     if isinstance(data, np.ndarray):
         a = np.ascontiguousarray(data.reshape(-1).view(np.uint8))
-        return int(lib.dt_adler32(a.ctypes.data_as(_u8p), a.size, start))
+        return ctypes.cast(a.ctypes.data, _u8p), a.size, a
     b = bytes(data)
-    return int(lib.dt_adler32(_u8(b), len(b), start))
+    return _u8(b), len(b), b
+
+
+def native_adler32(data, start: int = 1) -> int:
+    """adler32 of bytes-like data or of an ndarray's bytes."""
+    p, n, keep = _u8_view(data)
+    return int(load().dt_adler32(p, n, start))
+
+
+def native_crc32(data, start: int = 0) -> int:
+    """crc32 of bytes-like data or of an ndarray's bytes."""
+    p, n, keep = _u8_view(data)
+    return int(load().dt_crc32(p, n, start))
+
+
+# ---- speculative large-stream helpers (runtime/large.py) ------------------
+
+def find_block_start(lib, body, bit_lo: int, bit_hi: int) -> int:
+    """First validated dynamic-block header bit offset in [bit_lo, bit_hi)
+    of ``body`` (uint8 ndarray), or -1."""
+    return int(lib.dt_find_block_start(_in_u8(body), body.size,
+                                       bit_lo, bit_hi))
+
+
+def inflate_span(lib, body, bit_start: int, bit_limit: int, out, out_pos: int):
+    """Serial raw-deflate decode from an arbitrary bit position with
+    out[:out_pos] as the back-reference window; stops at the first block
+    boundary at/after bit_limit or after the final block.
+
+    Returns (Result, new_out_pos, end_bit); end_bit < 0 encodes "final
+    block consumed" as -(bit + 1)."""
+    ptr, size = _out_u8(out)
+    dl = ctypes.c_uint64(out_pos)
+    eb = ctypes.c_int64(bit_start)
+    r = lib.dt_inflate_span(_in_u8(body), body.size, bit_start, bit_limit,
+                            ptr, size, out_pos, ctypes.byref(dl),
+                            ctypes.byref(eb))
+    return Result(r), int(dl.value), int(eb.value)
+
+
+def resolve_tokens_into(lib, lane_tokens, lane_input, out, start: int,
+                        end: int) -> None:
+    """Resolve one lane's token stream into out[start:end) with
+    out[:start] as its back-reference window (segment chaining).
+    lane_input: the lane's compressed bytes (stored-run source), any
+    dtype, read as raw bytes at the lane's token-offset base."""
+    ptr, size = _out_u8(out)
+    if not 0 <= start <= end <= size:
+        raise ValueError(f"[{start}, {end}) does not lie in out "
+                         f"({size} bytes)")
+    toks = np.ascontiguousarray(lane_tokens, dtype=np.uint32)
+    inp = np.ascontiguousarray(lane_input)
+    dst_len = np.array([end], np.int32)
+    dst_start = np.array([start], np.int32)
+    lib.dt_resolve_tokens(
+        toks.ctypes.data_as(_u32p), 1, toks.size,
+        ctypes.cast(inp.ctypes.data, _u8p), 0, inp.nbytes,
+        ptr, 0, size, dst_len.ctypes.data_as(_i32p),
+        dst_start.ctypes.data_as(_i32p), ctypes.cast(None, _u8p), 0, 1)
+
+
+def inflate_large_parallel(lib, body, out, seg_bytes: int = 16384,
+                           n_threads: int | None = None, state=None):
+    """Parallel large-stream inflate (dt_inflate_large): worker threads
+    find block boundaries and token-decode their segments while the
+    calling thread stitches and resolves behind them.
+
+    body: uint8 ndarray of the raw-deflate body; out: uint8 output array.
+    Returns (Result, total_bytes, end_bit, state).  On EFULL, grow ``out``
+    and call again passing ``state`` back (tokens are reused, only the
+    stitch re-runs); free the state with ``large_free``."""
+    if n_threads is None:
+        # one worker per core: the stitcher steals the segment it waits for
+        n_threads = min(16, max(1, os.cpu_count() or 2))
+    ptr, size = _out_u8(out)
+    total = ctypes.c_uint64(0)
+    end_bit = ctypes.c_int64(0)
+    if state is None:
+        state = ctypes.c_void_p(None)
+    r = lib.dt_inflate_large(_in_u8(body), body.size, seg_bytes, n_threads,
+                             ptr, size, ctypes.byref(total),
+                             ctypes.byref(end_bit), ctypes.byref(state))
+    return Result(r), int(total.value), int(end_bit.value), state
+
+
+def large_free(lib, state) -> None:
+    if state:
+        lib.dt_large_free(state)
+
+
+def stitch(lib, body, cands, lane_info, out):
+    """One-call native stitch of the speculative lane chain (dt_stitch):
+    resolve validated lanes, span-decode gaps, all inside the library.
+    ``lane_info`` is (tokens u32 [M, T], dst_pos, status, final, bit_end)
+    or None, which span-decodes everything.  Writes at most ``out.size``
+    bytes.  Returns (Result, total_bytes, end_bit)."""
+    ptr, size = _out_u8(out)
+    cands_a = np.ascontiguousarray(cands, dtype=np.int64)
+    M = cands_a.size
+    if lane_info is not None:
+        toks_nt, dst_pos, status, final, bit_end = lane_info
+        toks_a = np.ascontiguousarray(toks_nt, dtype=np.uint32)
+        if toks_a.ndim != 2 or toks_a.shape[0] != M:
+            raise ValueError(f"tokens must be [{M}, T], got {toks_a.shape}")
+        toks_p = toks_a.ctypes.data_as(_u32p)
+        T = toks_a.shape[1]
+        dst_pos_a = np.ascontiguousarray(dst_pos, dtype=np.int32)
+        status_a = np.ascontiguousarray(status, dtype=np.int32)
+        final_a = np.ascontiguousarray(final, dtype=np.int32)
+        bit_end_a = np.ascontiguousarray(bit_end, dtype=np.int64)
+        for name, a in (("dst_pos", dst_pos_a), ("status", status_a),
+                        ("final", final_a), ("bit_end", bit_end_a)):
+            if a.shape != (M,):
+                raise ValueError(f"{name} must be [{M}], got {a.shape}")
+    else:
+        toks_p = ctypes.cast(None, _u32p)
+        T = 0
+        dst_pos_a = status_a = final_a = np.zeros(1, np.int32)
+        bit_end_a = np.zeros(1, np.int64)
+    total = ctypes.c_uint64(0)
+    end_bit = ctypes.c_int64(0)
+    r = lib.dt_stitch(
+        _in_u8(np.ascontiguousarray(body)), body.size,
+        cands_a.ctypes.data_as(_i64p), M, toks_p, T,
+        dst_pos_a.ctypes.data_as(_i32p), status_a.ctypes.data_as(_i32p),
+        final_a.ctypes.data_as(_i32p), bit_end_a.ctypes.data_as(_i64p),
+        ptr, size, ctypes.byref(total), ctypes.byref(end_bit))
+    return Result(r), int(total.value), int(end_bit.value)

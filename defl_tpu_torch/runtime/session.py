@@ -1,6 +1,7 @@
-"""Batch codec sessions: pack -> decode_tokens -> resolve (host or device).
+"""Batch codec sessions: pack -> decode_tokens -> resolve (host or device),
+and the hybrid encode: host fields -> bit-pack on the device -> compact.
 
-Counterpart of ``defl_tpu/runtime/session.py`` for the batched inflate.
+Counterpart of ``defl_tpu/runtime/session.py``.
 Each lane carries its own status, so a malformed stream never poisons
 its batch; lanes that exhaust the device step budget (adversarial floods
 of empty blocks) are retried on the host engine.
@@ -16,9 +17,15 @@ Differences from the JAX session:
   device raises when ``device`` is CUDA and there is no card.
 - No N/W padding to shape buckets: they exist to bound XLA recompiles.
   Capacity keeps its bucket so that T = step_budget(C) equals JAX's.
+- ``device_deflate`` takes a field buffer of its own for every call
+  (page-locked, from PyTorch's caching host allocator), so concurrent
+  calls never share one; its scan pack is the closed form of
+  ``ops/huffman_pack.py``.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -26,6 +33,7 @@ import torch
 from defl_tpu_torch.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
 from defl_tpu_torch import metrics
 from defl_tpu_torch.core.oracle import inflate_oracle
+from defl_tpu_torch.ops import huffman_pack
 from defl_tpu_torch.ops import inflate_batch as ib
 from defl_tpu_torch.ops.checksums import adler32_batch
 from defl_tpu_torch.ops.cuda import checksums_cu, decode_cu
@@ -256,23 +264,58 @@ def _host_fallback(datas, caps, flags, dictionary):
     return list(zip(results, outputs))
 
 
+def _joined(s) -> bytes:
+    return bytes(s) if isinstance(s, (bytes, bytearray)) else \
+        b"".join(bytes(c) for c in s)
+
+
+def _cap_of(dst_capacities, i):
+    if dst_capacities is None:
+        return None
+    return int(dst_capacities) if np.isscalar(dst_capacities) \
+        else int(dst_capacities[i])
+
+
 def batch_inflate(streams, flags=FLAG_ZLIB, backend="auto", dictionary=None,
                   dst_capacities=None, device="cuda"):
     """Public batch decode entry (see api.inflate_batch).
 
-    ``auto`` decides by the batch alone, as the JAX session does: 8 or
-    more streams, none over ``MAX_STREAM_BYTES``, go to ``device``.  With
-    ``device="cuda"`` and no card that raises; a caller who wants the host
-    says ``backend="host"`` or ``device="cpu"``.
+    Streams over ``MAX_STREAM_BYTES`` (the per-lane packing limit) take
+    the speculative block-parallel path, ``runtime/large.py``, one by one:
+    on ``device`` under ``backend="device"`` (a body past the device
+    decoder's cursors then raises ``ValueError``), by ``inflate_large``'s
+    own choice under ``"auto"``; the rest batch as follows.  ``auto`` decides
+    by the batch alone, as the JAX session does: 8 or more streams go to
+    ``device``.  With ``device="cuda"`` and no card that raises; a caller
+    who wants the host says ``backend="host"`` or ``device="cpu"``.
     """
     n = len(streams)
     sizes = [len(s) if isinstance(s, (bytes, bytearray)) else
              sum(len(c) for c in s) for s in streams]
-    big = any(sz > MAX_STREAM_BYTES for sz in sizes)
-    if backend == "device" and big:
-        raise NotImplementedError(
-            f"streams over {MAX_STREAM_BYTES} bytes take runtime/large.py's "
-            "device route, which is not ported yet")
+    big = [i for i, sz in enumerate(sizes) if sz > MAX_STREAM_BYTES]
+    if big and backend in ("auto", "device") and not dictionary:
+        from defl_tpu_torch.runtime.large import inflate_large
+
+        big_set = set(big)
+        small_idx = [i for i in range(n) if i not in big_set]
+        sub_caps = None
+        if dst_capacities is not None:
+            sub_caps = (dst_capacities if np.isscalar(dst_capacities)
+                        else [dst_capacities[i] for i in small_idx])
+        s_res, s_out = batch_inflate(
+            [streams[i] for i in small_idx], flags, backend, dictionary,
+            sub_caps, device) if small_idx else ([], [])
+        results = [None] * n
+        outputs = [b""] * n
+        for j, i in enumerate(small_idx):
+            results[i], outputs[i] = s_res[j], s_out[j]
+        for i in big:
+            results[i], outputs[i] = inflate_large(
+                _joined(streams[i]), flags, _cap_of(dst_capacities, i),
+                use_device=True if backend == "device" else None,
+                device=device)
+        return results, outputs
+
     use_device = backend == "device" or (
         backend == "auto" and n >= 8 and not big)
     if use_device:
@@ -283,13 +326,148 @@ def batch_inflate(streams, flags=FLAG_ZLIB, backend="auto", dictionary=None,
     results = []
     outputs = []
     for i, s in enumerate(streams):
-        data = s if isinstance(s, (bytes, bytearray)) else \
-            b"".join(bytes(c) for c in s)
-        cap = None
-        if dst_capacities is not None:
-            cap = int(dst_capacities) if np.isscalar(dst_capacities) \
-                else int(dst_capacities[i])
-        r, o = inflate_oracle(bytes(data), flags, cap, dictionary)
+        r, o = inflate_oracle(_joined(s), flags, _cap_of(dst_capacities, i),
+                              dictionary)
         results.append(r)
         outputs.append(o)
     return results, outputs
+
+
+def device_deflate(payloads, level=6, flags=FLAG_ZLIB, stats_out=None,
+                   pack="scatter", device="cuda"):
+    """Hybrid encode: the C++ host engine computes LZ77 tokens, Huffman
+    trees and block layout as (value, nbits) fields; ``device``
+    concatenates the fields lane-parallel (ops/huffman_pack.py).
+    Byte-identical to the serial C++ encoder by construction (both consume
+    the same put() sequence).  Returns list[bytes].
+
+    pack="scatter" (default) assembles each lane's packed words on
+    ``device`` and only those come back; pack="scan" (the JAX session's
+    default) computes the lockstep reservoir's word slots (in closed form)
+    and the host compactor gathers the used ones by the nbits schedule.
+    The output is the same bytes; the scan fetches a slot for every field
+    (9x the bytes of the packed words at 2048 x 64 KiB) and needs the
+    compactor, and was the slower of the two wherever both were timed
+    (PERF.md), so it is kept by name for parity and is not the default.
+
+    stats_out (optional dict) receives the stage seconds ``fields_s``,
+    ``upload_s``, ``pack_s``, ``fetch_s``, ``assemble_s`` and
+    ``device_fallbacks``: the lanes whose fields overflowed the field
+    budget and went through the serial encoder instead.
+    """
+    if pack not in ("scan", "scatter"):
+        raise ValueError(f"pack must be 'scan' or 'scatter', got {pack!r}")
+    dev = _pick_decoder(device)
+    on_card = dev.type == "cuda"
+    payloads = [bytes(p) for p in payloads]
+    st = stats_out if stats_out is not None else {}
+    if not payloads:
+        st["device_fallbacks"] = []
+        return []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def fetch(t):
+        """A device tensor of u32 patterns -> uint32 ndarray on the host,
+        through a page-locked buffer of this call's own."""
+        if not on_card:
+            return huffman_pack.to_u32(t)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t)
+        return host.numpy().view(np.uint32)
+
+    t0 = time.perf_counter()
+    fields, n_fields, total_bits, adlers, results = \
+        native.native_deflate_fields(payloads, level=level, pin=on_card)
+    st["fields_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    fields_dev = torch.from_numpy(fields.view(np.int32)).to(dev)
+    nf_dev = torch.from_numpy(n_fields.astype(np.int32)).to(dev)
+    sync()
+    st["upload_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if pack == "scan":
+        slots, final_lo, _ = huffman_pack.pack_fields_scan(fields_dev, nf_dev)
+        sync()
+        st["pack_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        slots_np, lo_np = fetch(slots), fetch(final_lo)
+        st["fetch_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bodies = native.native_encode_compact(fields, slots_np, n_fields,
+                                              lo_np, total_bits)
+    else:
+        W = 1024
+        while W * 32 < int(total_bits.max()) + 32:
+            W *= 2
+        words, _ = huffman_pack.pack_fields(fields_dev, nf_dev, n_words=W)
+        sync()
+        st["pack_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wb = fetch(words)
+        st["fetch_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bodies = [wb[i].view(np.uint8)[: (int(total_bits[i]) + 7) // 8]
+                  .tobytes() for i in range(len(payloads))]
+
+    zf = bool(flags & FLAG_ZLIB)
+    outs = []
+    fallback = []
+    for i in range(len(payloads)):
+        if results[i] is not Result.OK:
+            fallback.append(i)
+            outs.append(b"")
+        elif zf:
+            outs.append(b"\x78\x01" + bodies[i]
+                        + int(adlers[i]).to_bytes(4, "big"))
+        else:
+            outs.append(bodies[i])
+    if fallback:  # field-budget overflow: serial encoder for those lanes
+        rs, fb_outs = native.native_deflate_batch(
+            [payloads[i] for i in fallback], level=level, flags=flags)
+        bad = [i for i, r in zip(fallback, rs) if r is not Result.OK]
+        if bad:
+            raise RuntimeError(f"serial encoder failed for lanes {bad[:5]}")
+        for j, i in enumerate(fallback):
+            outs[i] = fb_outs[j]
+    st["assemble_s"] = time.perf_counter() - t0
+    st["device_fallbacks"] = fallback
+    metrics.inc("device_deflate_lanes", len(payloads))
+    metrics.inc("device_deflate_fallback_lanes", len(fallback))
+    metrics.inc("deflate_bytes_in", int(sum(len(p) for p in payloads)))
+    metrics.inc("deflate_bytes_out", int(sum(len(o) for o in outs)))
+    return outs
+
+
+def batch_deflate(payloads, level=6, flags=FLAG_ZLIB, backend="auto",
+                  device="cuda"):
+    """Compress many payloads.
+
+    backend: "host" is the multithreaded C++ engine; "device" is the
+    hybrid of host fields and the bit-pack on ``device``
+    (``device_deflate``); "auto" is the host engine, as in the JAX
+    session: the hybrid's output is byte-identical, and whether it is
+    faster on a given card is a measurement (PERF.md), not a default.
+    ``device`` matters to backend="device" only."""
+    if backend not in ("host", "device", "auto"):
+        raise ValueError(f"backend must be 'host', 'device' or 'auto', got "
+                         f"{backend!r}")
+    if backend == "device":
+        return device_deflate(payloads, level=level, flags=flags,
+                              device=device)
+    payloads = [bytes(p) for p in payloads]
+    results, outs = native.native_deflate_batch(payloads, level=level,
+                                                flags=flags)
+    bad = [i for i, r in enumerate(results) if r is not Result.OK]
+    if bad:
+        # the engine's output bound did not hold for these: the reference
+        # encoder has none
+        from defl_tpu_torch.core.deflate_ref import deflate_oracle
+
+        for i in bad:
+            outs[i] = deflate_oracle(payloads[i], level=level, flags=flags)
+    return outs

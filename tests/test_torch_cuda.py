@@ -563,3 +563,201 @@ def test_session_on_the_card(resolve):
     assert sess.outputs()[1] == pays == twin.outputs()[1]
     assert [sess.input_pos(i) for i in range(16)] == \
         [len(z) - 4 for z in zs]
+
+
+def test_bench_batch_longest_lanes_equal_the_chunk_loop():
+    """The bench corpus's lanes that take the most steps (literal-heavy:
+    about 19,000 steps and 38,000 token rows), out of one launch over 256
+    lanes of the corpus, against the chunk loop.  The smoke run holds the
+    shorter half of the batch's lanes; the plain version lasts as long as
+    its longest lane, so the longest are held here."""
+    from defl_tpu_torch.breakdown import lane_rows
+    from defl_tpu_torch.corpus import make_silesia_like
+
+    n, block = 256, 65536
+    pays = make_silesia_like(n * block, block)[:n]
+    cache = {}
+    zs = [cache.setdefault(id(p), zlib.compress(p, 6)) for p in pays]
+    p = pack_streams(zs, 1, block)
+    up = lambda a: torch.from_numpy(a).cuda()
+    args = (up(p.words.view(np.int32)), up(p.nbits), up(p.zflag),
+            up(p.dst_cap))
+    T = ib.step_budget(block)
+    tok, carry = decode_cu.decode_tokens(*args, T=T)
+    assert (carry["status"] == 0).all()
+    used = lane_rows(tok, carry["tok_rows"])
+    pick = torch.argsort(used)[-3:]
+    assert int(used[pick[-1]]) > 35_000
+    sub = [a[pick] for a in args]
+    parts, pc = [], None
+    for _ in range(4):
+        ptok, pc = decode_cu.decode_tokens(*sub, T=T, carry=pc, **_plain())
+        parts.append((ptok, pc["tok_rows"]))
+        if not (pc["status"] == ib.STATUS_RUNNING).any():
+            break
+    got = decode_cu.select_lanes((tok, carry), pick)
+    assert decode_cu.compare_decodes(got, (parts, pc)) == 0
+
+
+# ---- the split decode of one huge stream (shared-input mode) ---------------
+
+def _split_stream(n_bytes=600_000, seg=2048, level_mem=4):
+    """A stream of small blocks, its body, the candidate block starts at a
+    small segment size, and decode_tokens' arguments for them."""
+    from defl_tpu_torch.corpus import make_silesia_like
+    from defl_tpu_torch.runtime import large
+
+    raw = b"".join(make_silesia_like(max(n_bytes, 65536), 65536))[:n_bytes]
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, level_mem)
+    comp = co.compress(raw) + co.flush()
+    body = np.frombuffer(comp, np.uint8)[2:]
+    cands = large._find_candidates(body, 0, body.size // seg, 8 * seg)
+    kw = large.lane_args(body.size, cands)
+    args = (kw.pop("nbits"), kw.pop("zflag"), kw.pop("cap"))
+    kw.update(dict_len=large.WINDOW, shared_input=True)
+    words = torch.from_numpy(decode_cu.pad_body(body)).view(torch.int32)
+    return raw, comp, body, cands, words.cuda(), args, kw
+
+
+def test_shared_input_stream_kernel_equals_the_chunk_loop():
+    raw, comp, body, cands, words, args, kw = _split_stream()
+    assert len(cands) > 50
+    launches = decode_cu.launches
+    got = decode_cu.decode_tokens(words, *args, **kw)
+    torch.cuda.synchronize()
+    assert decode_cu.launches == launches + 1
+    want = decode_cu.decode_tokens(words, *args, **kw, **_plain())
+    assert decode_cu.compare_decodes(got, want) == 0
+    st = got[1]
+    assert (st["status"] == 0).all()
+    assert st["bitpos"][:-1].tolist() == cands[1:]
+    # the tokens stitch to the stream's bytes with every lane valid
+    from defl_tpu_torch.runtime import native
+
+    toks = fetch_tokens([(got[0], st["tok_rows"])])
+    out = np.zeros(len(raw) + 64, np.uint8)
+    meta = [st[k].cpu().numpy() for k in ("dst_pos", "status", "final")]
+    r, total, _ = native.stitch(native.load(), body, cands,
+                                (toks, *meta,
+                                 st["bitpos"].cpu().numpy().astype(np.int64)),
+                                out)
+    assert int(r) == 0 and out[:total].tobytes() == raw
+
+
+def test_shared_input_chunk_kernel_matches_twin_slot_for_slot():
+    raw, comp, body, cands, words, args, kw = _split_stream(200_000)
+    a = decode_cu.decode_tokens(words, *args, K=64, **kw,
+                                _chunk=decode_cu.decode_chunk)
+    b = decode_cu.decode_tokens(words, *args, K=64, **kw,
+                                _chunk=decode_cu.decode_chunk_ref)
+    torch.cuda.synchronize()
+    _assert_same(a, b)
+    assert (a[1]["status"] == 0).all()
+
+
+def test_shared_input_head_lane_has_no_window():
+    """Lane 0 starts at the stream's head with a reach of 0: a distance
+    before byte 0 is ERR there, in kernel and plain version alike."""
+    from defl_tpu_torch.runtime import large
+
+    raw = bytes(range(256)) * 300
+    zdict = raw[:16384][::-1]
+    co = zlib.compressobj(6, zlib.DEFLATED, -15, 4, zdict=zdict)
+    comp = co.compress(zdict[-600:] + raw) + co.flush()
+    body = np.frombuffer(comp, np.uint8)
+    cands = [0]
+    kw = large.lane_args(body.size, cands)
+    args = (kw.pop("nbits"), kw.pop("zflag"), kw.pop("cap"))
+    kw.update(dict_len=large.WINDOW, shared_input=True)
+    words = torch.from_numpy(decode_cu.pad_body(body)).view(torch.int32).cuda()
+    got = decode_cu.decode_tokens(words, *args, **kw)
+    want = decode_cu.decode_tokens(words, *args, **kw, **_plain())
+    assert decode_cu.compare_decodes(got, want) == 0
+    assert got[1]["status"].tolist() == [-1]
+
+
+def test_inflate_large_on_the_card():
+    from defl_tpu_torch import Result, inflate_batch, inflate_large
+    from defl_tpu_torch.corpus import make_silesia_like
+
+    raw = b"".join(make_silesia_like(8 << 20, 65536))
+    comp = zlib.compress(raw, 6)
+    st = {}
+    launches = decode_cu.launches
+    r, out = inflate_large(comp, FLAG_ZLIB | FLAG_VERIFY_ADLER32,
+                           use_device=True, stats_out=st)
+    assert r is Result.OK and out == raw
+    assert st["route"] == "device" and decode_cu.launches == launches + 1
+    assert st["lanes"] > 50 and st["lanes_valid"] >= 0.8 * st["lanes"]
+    buf = np.zeros(len(raw), np.uint8)
+    r, n = inflate_large(comp, out=buf)              # the default route
+    assert r is Result.OK and buf[:n].tobytes() == raw
+    bad = bytearray(comp)
+    bad[-1] ^= 1
+    r, _ = inflate_large(bytes(bad), FLAG_ZLIB | FLAG_VERIFY_ADLER32)
+    assert r is Result.ERR
+    small = zlib.compress(b"small " * 100)
+    res, outs = inflate_batch([small, comp], backend="device",
+                              dst_capacities=[1024, len(raw)])
+    assert res == [Result.OK] * 2 and outs == [b"small " * 100, raw]
+
+
+# ---- the hybrid encode -------------------------------------------------------
+
+def _encode_payloads(n=96, seed=3):
+    from defl_tpu_torch.corpus import make_silesia_like
+
+    rng = np.random.default_rng(seed)
+    pays = make_silesia_like(n * 16384, 16384)[:n]
+    return pays + [b"", b"x", rng.integers(0, 256, 70000, np.uint8).tobytes(),
+                   b"\0" * 50000]
+
+
+@pytest.mark.parametrize("pack", ["scan", "scatter"])
+def test_device_deflate_on_the_card_is_byte_identical(pack):
+    from defl_tpu_torch import device_deflate
+    from defl_tpu_torch.runtime import native
+
+    pays = _encode_payloads()
+    st = {}
+    outs = device_deflate(pays, stats_out=st, pack=pack)
+    assert outs == native.native_deflate_batch(pays)[1]
+    assert st["device_fallbacks"] == []
+    assert all(zlib.decompress(o) == p for o, p in zip(outs, pays))
+    raw = device_deflate(pays, flags=0, pack=pack)
+    assert all(zlib.decompress(o, -15) == p for o, p in zip(raw, pays))
+
+
+def test_pack_closed_form_equals_the_reservoir_loop_on_the_card():
+    from defl_tpu_torch.ops import huffman_pack as hp
+    from defl_tpu_torch.runtime import native
+
+    pays = _encode_payloads(8)[:8]
+    pays = [p[:1500] for p in pays]
+    fields, nf, tb, _, _ = native.native_deflate_fields(pays, F=2048)
+    fd = torch.from_numpy(fields.view(np.int32)).cuda()
+    nd = torch.from_numpy(nf.astype(np.int32)).cuda()
+    got = hp.pack_fields_scan(fd, nd)
+    ref = hp.pack_fields_scan_ref(fd, nd)
+    cpu = hp.pack_fields_scan(fields, nf)
+    for a, b, c in zip(got, ref, cpu):
+        assert a.dtype == torch.int32 and a.is_cuda
+        assert np.array_equal(hp.to_u32(a), hp.to_u32(b))
+        assert np.array_equal(hp.to_u32(a), hp.to_u32(c))
+    assert got[2].cpu().tolist() == tb.tolist()
+
+
+def test_concurrent_device_deflate_on_the_card():
+    """Two threads encoding at once: each call has its own field buffer,
+    so neither overwrites the other's fields before they are uploaded."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from defl_tpu_torch import device_deflate
+    from defl_tpu_torch.runtime import native
+
+    sets = [_encode_payloads(64, seed=1), _encode_payloads(64, seed=2)[::-1]]
+    want = [native.native_deflate_batch(s)[1] for s in sets]
+    for _ in range(3):
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            got = list(ex.map(device_deflate, sets))
+        assert got == want

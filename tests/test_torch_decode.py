@@ -192,10 +192,27 @@ def test_distance_too_far_is_an_error():
 
 
 def test_shared_input_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        decode_cu.decode_tokens(np.zeros((1, 4), np.uint32), np.zeros(1),
-                                np.zeros(1), np.zeros(1), T=64,
-                                shared_input=True, device="cpu")
+    """The name is from when the mode raised.  It is ported now: two lanes
+    read one raw body, the second from the first's start again, and both
+    end like a lane of the ordinary mode."""
+    pay = b"shared body " * 50
+    co = zlib.compressobj(6, zlib.DEFLATED, -15)
+    raw = co.compress(pay) + co.flush()
+    body = np.frombuffer(raw + b"\0" * (-len(raw) % 4), np.uint8).view(
+        np.uint32)
+    two = lambda v: np.full(2, v, np.int32)
+    tok, c = decode_cu.decode_tokens(
+        body, two(8 * len(raw)), two(0), two(4096), T=2048,
+        shared_input=True, start_bit=two(0), limit=two(8 * len(raw)),
+        in_base=two(0), device="cpu")
+    want, wc = decode_cu.decode_tokens(
+        body[None, :], np.array([8 * len(raw)]), np.zeros(1), np.array([4096]),
+        T=2048, device="cpu")
+    assert c["status"].tolist() == [int(Result.OK)] * 2
+    assert c["dst_pos"].tolist() == [len(pay)] * 2
+    for lane in (0, 1):
+        assert torch.equal(tok[: c["tok_rows"], lane],
+                           want[: wc["tok_rows"], 0])
 
 
 # ---------------------------------------------------------------------------

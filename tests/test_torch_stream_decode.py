@@ -432,22 +432,23 @@ static int vectorise(const void* words, int W) {
 extern "C" void decode_stream_host(
     int32_t* st, uint32_t* lens, int32_t* count, int32_t* first,
     int32_t* offs, int32_t* maxlen, uint32_t* syms, const uint32_t* words,
-    int W, uint32_t* tok, u64* meta, const int32_t* order, int N,
+    int W, int shared, uint32_t* tok, u64* meta, const int32_t* order, int N,
     int n_steps, int has_dict, int lanes) {
   std::vector<uint32_t> smem((size_t)LANE_BYTES * lanes / 4 + 1, 0xDEADBEEFu);
   for (int i = 0; i < N; ++i)
     stream_lane(smem.data(), i % lanes, lanes, order[i], st, lens, count,
-                first, offs, maxlen, syms, words, W, vectorise(words, W), tok,
-                meta, N, n_steps, has_dict);
+                first, offs, maxlen, syms, words, shared ? 0 : (size_t)W, W,
+                vectorise(words, W), tok, meta, N, n_steps, has_dict);
 }
 
 extern "C" void decode_chunk_host(
-    int32_t* st, uint32_t* lens, const uint32_t* words, int W,
+    int32_t* st, uint32_t* lens, const uint32_t* words, int W, int shared,
     const int32_t* bound, const int32_t* adjoff, const int32_t* maxlen,
     const uint32_t* syms, uint32_t* tok, int N, int K, int has_dict) {
   for (int lane = 0; lane < N; ++lane)
-    chunk_lane(lane, st, lens, words, W, vectorise(words, W), bound, adjoff,
-               maxlen, syms, tok, N, K, has_dict);
+    chunk_lane(lane, st, lens, words, shared ? 0 : (size_t)W, W,
+               vectorise(words, W), bound, adjoff, maxlen, syms, tok, N, K,
+               has_dict);
 }
 """
 
@@ -480,7 +481,9 @@ def _host_stream(lib, monkeypatch, threads=4):
         lib.decode_stream_host(
             _ptr(st_pk), _ptr(lens), _ptr(count), _ptr(first), _ptr(offs),
             _ptr(maxlen), _ptr(syms), _ptr(words),
-            ctypes.c_int(words.shape[1]), _ptr(tok), _ptr(meta, torch.int64),
+            ctypes.c_int(words.shape[1]),
+            ctypes.c_int(int(words.shape[0] != st_pk.shape[1])), _ptr(tok),
+            _ptr(meta, torch.int64),
             _ptr(order), ctypes.c_int(st_pk.shape[1]), ctypes.c_int(n_steps),
             ctypes.c_int(int(has_dict)), ctypes.c_int(threads))
 
@@ -656,7 +659,7 @@ def test_host_build_of_the_chunk_kernel_is_the_twin_bit_for_bit(host_kernels,
         out = torch.empty(tok.shape, dtype=torch.int32)
         host_kernels.decode_chunk_host(
             _ptr(st_pk), _ptr(lens), _ptr(words), ctypes.c_int(words.shape[1]),
-            _ptr(bound), _ptr(adjoff), _ptr(maxlen), _ptr(syms), _ptr(out),
+            ctypes.c_int(int(words.shape[0] != st_pk.shape[1])), _ptr(bound), _ptr(adjoff), _ptr(maxlen), _ptr(syms), _ptr(out),
             ctypes.c_int(st_pk.shape[1]), ctypes.c_int(K),
             ctypes.c_int(int(has_dict)))
         tok.copy_(out)
@@ -698,7 +701,8 @@ def _lane_build(lib, kind, lengths, hlit=None, hdist=None):
     order = torch.arange(n - 1, -1, -1, dtype=torch.int32)
     lib.decode_stream_host(
         _ptr(st_pk), _ptr(lens), _ptr(count), _ptr(first), _ptr(offs),
-        _ptr(maxlen), _ptr(syms), _ptr(words), ctypes.c_int(16), _ptr(tok),
+        _ptr(maxlen), _ptr(syms), _ptr(words), ctypes.c_int(16),
+        ctypes.c_int(0), _ptr(tok),
         _ptr(meta, torch.int64), _ptr(order), ctypes.c_int(n), ctypes.c_int(1),
         ctypes.c_int(0),
         ctypes.c_int(8))
@@ -775,3 +779,128 @@ def test_host_build_fixed_tables_match_the_plain_build(host_kernels,
     for key in ("count", "first", "offs", "maxlen"):
         assert torch.equal(c[key][:, 1:].long(), wck[key][:, 1:].long()), key
     assert torch.equal(c["syms"][:, 8:], wck["syms"][:, 8:])
+
+
+# ---------------------------------------------------------------------------
+# the host build in shared-input mode (runtime/large.py's split decode)
+# ---------------------------------------------------------------------------
+
+def _split(raw, seg, mem_level=None, wbits=15, zdict=None):
+    """(body, candidates, decode_tokens arguments) of one stream split at
+    the block starts the finder sees near every ``seg`` bytes."""
+    from defl_tpu_torch.runtime import large
+
+    if mem_level is None:
+        comp = zlib.compress(raw, 6)
+    else:
+        kw = {} if zdict is None else {"zdict": zdict}
+        co = zlib.compressobj(6, zlib.DEFLATED, wbits, mem_level, **kw)
+        comp = co.compress(raw) + co.flush()
+    body = np.frombuffer(comp, np.uint8)[2 if wbits > 0 else 0:]
+    cands = large._find_candidates(body, 0, max(1, body.size // seg), 8 * seg)
+    return body, cands, large.lane_args(body.size, cands)
+
+
+def _host_split_decode(lib, monkeypatch, body, kw):
+    """The shared-input decode as the CUDA route runs it, its launch
+    replaced by the host build."""
+    _host_stream(lib, monkeypatch)       # installs the launch
+    kw = dict(kw)
+    n = len(kw["nbits"])
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.int32))
+    st = tib._init_scan_state(n, "cpu")
+    ck = tib._init_chunk_state(n, "cpu")
+    st["state"].fill_(tib.S_BHDR)
+    st["bitpos"] = as_t(kw["start_bit"])
+    words = torch.from_numpy(decode_cu.pad_body(body)).view(torch.int32)
+    return decode_cu._decode_stream(
+        words[None, :], as_t(kw["nbits"]), as_t(kw["cap"]), as_t(kw["limit"]),
+        as_t(kw["dict_reach"]), as_t(kw["in_base"]), st, ck,
+        max(512, kw["T"] // 2), False)
+
+
+def _corpus_bytes(n):
+    from defl_tpu_torch.corpus import make_silesia_like
+
+    return b"".join(make_silesia_like(max(n, 65536), 65536))[:n]
+
+
+def test_host_build_shared_input_equals_the_chunk_loop(host_kernels,
+                                                       monkeypatch):
+    from defl_tpu_torch.runtime import large
+
+    raw = _corpus_bytes(150_000)
+    body, cands, kw = _split(raw, 1024, mem_level=4)
+    assert len(cands) > 20
+    got = _host_split_decode(host_kernels, monkeypatch, body, kw)
+    T = kw.pop("T")
+    args = (kw.pop("nbits"), kw.pop("zflag"), kw.pop("cap"))
+    want = decode_cu.decode_tokens(body.copy(), *args, T=T, K=128,
+                                   dict_len=large.WINDOW, shared_input=True,
+                                   device="cpu", **kw)
+    assert decode_cu.compare_decodes(got, want) == 0
+    assert (got[1]["status"] == OK).all()
+    assert got[1]["bitpos"][:-1].tolist() == cands[1:]
+
+
+def test_host_build_shared_input_at_the_real_segment_size(host_kernels,
+                                                          monkeypatch):
+    """Lanes of ~24 KiB of zlib level 6 input, as the card gets them: most
+    lanes must end on the next one's start (a candidate may be a false
+    block start, which costs a serial decode of its segment and no more),
+    and the chain must stitch to the stream's bytes."""
+    from defl_tpu_torch.runtime import large
+    from defl_tpu_torch.runtime import native as tnative
+
+    raw = _corpus_bytes(3 << 20)
+    body, cands, kw = _split(raw, large.SEGMENT_BYTES)
+    assert len(cands) > 30
+    tok, c = _host_split_decode(host_kernels, monkeypatch, body, kw)
+    on_seam = c["bitpos"][:-1].numpy() == np.asarray(cands[1:])
+    valid = int(((c["status"][:-1] == OK).numpy() & on_seam).sum())
+    assert valid >= 0.8 * (len(cands) - 1)
+    assert c["status"][-1] == OK and c["final"][-1] == 1
+    toks = np.ascontiguousarray(tok[: c["tok_rows"]].numpy().T).view(np.uint32)
+    lib = tnative.load()
+    out = np.zeros(len(raw) + 64, np.uint8)
+    r, total, end_bit = tnative.stitch(
+        lib, body, cands,
+        (toks, c["dst_pos"].numpy(), c["status"].numpy(), c["final"].numpy(),
+         c["bitpos"].numpy().astype(np.int64)), out)
+    assert r is tib.Result.OK and out[:total].tobytes() == raw
+    # the same chain with no lanes is all serial spans and the same bytes
+    out2 = np.zeros(len(raw) + 64, np.uint8)
+    r2, total2, end2 = tnative.stitch(lib, body, cands, None, out2)
+    assert (r2, total2, end2) == (r, total, end_bit)
+    assert out2[:total2].tobytes() == raw
+
+
+def test_host_build_shared_input_head_lane_and_stored_runs(host_kernels,
+                                                           monkeypatch):
+    from defl_tpu_torch.runtime import large
+
+    # a match reaching before the stream's start: ERR in the head lane
+    raw = _corpus_bytes(40_000)
+    zdict = raw[:16384][::-1]
+    body, cands, kw = _split(zdict[-600:] + raw, 1024, mem_level=4, wbits=-15,
+                             zdict=zdict)
+    got = _host_split_decode(host_kernels, monkeypatch, body, kw)
+    T = kw.pop("T")
+    args = (kw.pop("nbits"), kw.pop("zflag"), kw.pop("cap"))
+    want = decode_cu.decode_tokens(body.copy(), *args, T=T, K=128,
+                                   dict_len=large.WINDOW, shared_input=True,
+                                   device="cpu", **kw)
+    assert decode_cu.compare_decodes(got, want) == 0
+    assert got[1]["status"][0] == ERR and (got[1]["status"][1:] == OK).all()
+    # stored runs: offsets are taken from the lane's own segment start
+    raw = _corpus_bytes(70_000)
+    stored = np.frombuffer(zlib.compress(raw, 0), np.uint8)[2:]
+    first = int.from_bytes(stored[1:3].tobytes(), "little")
+    assert 0 < first < len(raw)
+    skw = large.lane_args(stored.size, [0, 8 * (5 + first)])
+    tok, c = _host_split_decode(host_kernels, monkeypatch, stored, skw)
+    assert c["status"].tolist() == [OK, OK]
+    assert c["dst_pos"].tolist() == [first, len(raw) - first]
+    lane1 = tok[: c["tok_rows"], 1]
+    t0 = int(lane1[lane1 != 0][0]) & 0xFFFFFFFF
+    assert t0 >> 30 == 3 and t0 & 0x3FFFFF == 5
