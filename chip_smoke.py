@@ -1,6 +1,6 @@
 """Smoke run of defl_tpu_torch on one CUDA card: the batched inflate main
 path, the device-resident inflate, the streaming session, the split decode
-of one huge stream and the hybrid encode.
+of one huge stream, the hybrid encode and the sharded decode.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -63,7 +63,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      packs byte-identical to the C++ encoder, every lane decompressed by
      zlib, no lane fallen back; on 64 lanes the closed-form scan pack
      against the reservoir loop over the steps that hold a field,
-     exactly; the stages' seconds.
+     exactly; the stages' seconds;
+ 10. the sharded decode (parallel/): (a) DistributedCodec over cuda:0 on
+     the bench batch: every lane OK and byte-equal in submission order,
+     ok_lanes and total_bytes the batch's, one launch, no host fallback;
+     then bench_scaling's overhead measurement on that batch (3
+     interleaved rounds against raw device_inflate); (b) the same batch
+     under an NCCL group of one rank, and a dictionary through the
+     broadcast, the stats reduced on the card; (c) two spawned processes
+     that share cuda:0 under gloo, each decoding its 4096 host-major rows
+     with one launch (the streams reach them through a file), then
+     dictionary streams that only rank 0 was given the dictionary of.
 Each kernel's count of launches is set to 0 just before the path that
 uses it and read just after.  The line before the last holds the card's
 name and power limit, the one before it the kernels' JSON record; the
@@ -840,6 +850,126 @@ def phase_deflate(dt, native, hp, deflate_stages, payloads):
     return rec, ms, loop_s, fields.shape, used
 
 
+def phase_sharded(decode_cu, metrics, streams, payloads, raw):
+    """10: the sharded decode on the card.  Returns the record of the
+    kernels' JSON line."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from defl_tpu_torch import bench_scaling, dryrun
+    from defl_tpu_torch.parallel import multihost
+    from defl_tpu_torch.parallel.mesh import make_stream_mesh
+    from defl_tpu_torch.parallel.shard import DistributedCodec
+
+    t_phase = time.perf_counter()
+
+    def decode_batch(codec, what):
+        f0 = metrics.snapshot().get("host_fallback_lanes", 0)
+        decode_cu.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, outs, st = codec.inflate(streams, dst_capacities=BLOCK)
+        wall = time.perf_counter() - t0
+        launches = decode_cu.launches
+        fallbacks = metrics.snapshot().get("host_fallback_lanes", 0) - f0
+        bad = [i for i, (r, o) in enumerate(zip(res, outs))
+               if r != 0 or o != payloads[i]]
+        if bad or len(outs) != N_STREAMS:
+            raise AssertionError(f"{what}: {len(bad)} lanes wrong or out of "
+                                 f"order, first {bad[:5]}")
+        if st["ok_lanes"] != N_STREAMS or st["total_bytes"] != raw:
+            raise AssertionError(f"{what}: ok_lanes {st['ok_lanes']}, "
+                                 f"total_bytes {st['total_bytes']}")
+        if launches != 1 or st["decode_launches"] != 1:
+            raise AssertionError(f"{what}: {launches} decode_stream launches")
+        if fallbacks or st["host_fallbacks"]:
+            raise AssertionError(f"{what}: host fallbacks {fallbacks}")
+        return wall, launches, st
+
+    # (a) one shard on cuda:0, no group
+    codec = DistributedCodec(make_stream_mesh(["cuda:0"]))
+    wall_a, launches_a, _ = decode_batch(codec, "[10a]")
+    log(f"[10a] DistributedCodec(cuda:0): {N_STREAMS} lanes OK and "
+        f"byte-equal in submission order, ok_lanes {N_STREAMS}, total_bytes "
+        f"{raw}, {launches_a} decode_stream launch, 0 host fallbacks; wall "
+        f"{wall_a:.3f} s = {raw / wall_a / 1e9:.4f} GB/s")
+    ov = bench_scaling.measure_overhead(block=BLOCK, reps=3, device="cuda:0",
+                                        batch=(payloads, streams))
+    log(f"[10a] bench_scaling overhead (3 interleaved rounds, best of each): "
+        f"dist_overhead_pct {ov['dist_overhead_pct']:.2f}, codec "
+        f"{ov['codec1_s']:.4f} s {ov['codec1_rounds_s']}, raw device_inflate "
+        f"{ov['raw_device_inflate_s']:.4f} s {ov['raw_rounds_s']} "
+        f"({ov['device']})")
+
+    # (b) an NCCL group of one rank
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as tmp:
+        multihost.initialize(f"file://{tmp}/store", 1, 0, backend="nccl",
+                             device="cuda:0", timeout_s=300)
+        try:
+            codec = DistributedCodec(make_stream_mesh(["cuda:0"]))
+            if not codec.mesh.grouped or dist.get_backend() != "nccl":
+                raise AssertionError("[10b]: no NCCL group under the mesh")
+            wall_b, launches_b, st_b = decode_batch(codec, "[10b]")
+            dcodec = DistributedCodec(make_stream_mesh(["cuda:0"]),
+                                      dictionary=dryrun.DICTIONARY)
+            dpay, dstr = dryrun.dict_streams(64)
+            dres, douts, dst = dcodec.inflate(dstr, dst_capacities=512)
+            if douts != dpay or any(int(r) != 0 for r in dres) \
+                    or dst["ok_lanes"] != 64:
+                raise AssertionError("[10b]: dictionary streams wrong")
+            if st_b["reduced_on"] != "cuda:0" \
+                    or dst["reduced_on"] != "cuda:0":
+                raise AssertionError(f"[10b]: stats reduced on "
+                                     f"{st_b['reduced_on']}")
+        finally:
+            dist.destroy_process_group()
+    log(f"[10b] NCCL group of one rank (FileStore, device_id cuda:0): "
+        f"{N_STREAMS} lanes OK and byte-equal, {launches_b} launch, stats "
+        f"all-reduced on {st_b['reduced_on']}; 64 dictionary streams "
+        f"through the broadcast OK; wall {wall_b:.3f} s; group destroyed")
+
+    # (c) two processes that share cuda:0 under gloo
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gloo_") as tmp:
+        t0 = time.perf_counter()
+        np.save(f"{tmp}/lengths.npy",
+                np.array([len(x) for x in streams], np.int64))
+        with open(f"{tmp}/streams.bin", "wb") as f:
+            for x in streams:
+                f.write(x)
+        written = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = dryrun.run_workers(
+            "shared_device_worker", 2, "gloo", ["cuda:0", "cuda:0"],
+            dict(n_streams=N_STREAMS, block=BLOCK, device="cuda:0"),
+            timeout_s=600, workdir=tmp)
+        wall_c = time.perf_counter() - t0
+    half = N_STREAMS // 2
+    for r in ranks:
+        k = r["rank"]
+        log(f"[10c] rank {k}: {json.dumps(r)}")
+        if r["rows"] != [k * half, (k + 1) * half] or r["launches"] != 1 \
+                or r["ok_lanes"] != N_STREAMS or r["total_bytes"] != raw \
+                or r["host_fallbacks"] or r["reduced_on"] != "cpu" \
+                or r["dict_ok_lanes"] != 64:
+            raise AssertionError(f"[10c] rank {k}: {r}")
+    log(f"[10c] 2 gloo processes on cuda:0: each decoded its {half} "
+        f"host-major rows in 1 launch, OK and byte-equal, ok_lanes "
+        f"{N_STREAMS} and total_bytes {raw} over both; rank 1 decoded the "
+        f"dictionary streams with rank 0's dictionary; streams file written "
+        f"in {written:.2f} s, workers {wall_c:.2f} s (start-up included), "
+        f"their decodes {[round(r['wall_s'], 4) for r in ranks]} s")
+    log(f"[10] the sharded decode took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": {"10a": launches_a, "10b": launches_b,
+                         "10c": [r["launches"] for r in ranks]},
+            "wall_s": {"10a": wall_a, "10b": wall_b,
+                       "10c": [r["wall_s"] for r in ranks]},
+            "dist_overhead_pct": ov["dist_overhead_pct"],
+            "codec1_s": ov["codec1_s"],
+            "raw_device_inflate_s": ov["raw_device_inflate_s"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1091,6 +1221,10 @@ def main() -> int:
         f"against {pk_loop_s:.1f} s of the loop's {pk_used} eager steps (the "
         f"steps that hold a field; the slots past them are zero)")
 
+    # ---- 10. the sharded decode ----
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(decode_cu, metrics, streams, payloads, raw)
+
     # decode_stream: the whole-batch launch of [2c]; plain_ms is the chunk
     # loop's time for plain_lanes of its lanes (the twin's time hardly
     # depends on the lane count).  The chunk kernel of [2b] shares the
@@ -1121,7 +1255,9 @@ def main() -> int:
             "bound_ms": larges[0]["bound"][0],
             "bound_by": larges[0]["bound"][1],
             "lanes": larges[0]["stages"]["lanes"],
-            "small_ms": sp_ms, "small_plain_ms": sp_plain_ms}}, {
+            "small_ms": sp_ms, "small_plain_ms": sp_plain_ms},
+        # the sharded decode of [10]: launches of each part, one per shard
+        "sharded": sharded}, {
         "name": "adler32_batch", "route": "cuda",
         "source": "defl_tpu_torch/csrc/adler32_batch.cu",
         "replaces": "defl_tpu/ops/pallas/checksums_pl.py:53",

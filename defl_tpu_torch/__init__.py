@@ -10,15 +10,20 @@ either in the C++ host resolver (the main path) or on the card
 split at block starts the host finds and decoded by the same kernel, every
 lane reading the one body on the card (``runtime/large.py``); batches are
 encoded by the C++ host engine with the Huffman bit-pack on the card
-(``ops/huffman_pack.py``).  ``defl_tpu`` stays the reference; this package
-stands on its own host tier and imports neither jax nor anything of
-``defl_tpu``.
+(``ops/huffman_pack.py``).  A batch shards over several cards and over
+the ranks of a ``torch.distributed`` group (``parallel/``).  ``defl_tpu``
+stays the reference; this package stands on its own host tier and imports
+neither jax nor anything of ``defl_tpu``.
 
 Layers (module names follow ``defl_tpu``)
 ------
 - ``api``                    ``InflateStream``, ``inflate_buffer``,
                              ``DeflateStream``, ``deflate_buffer`` (host
                              engines), ``inflate_batch``, ``deflate_batch``
+- ``parallel``               ``DistributedCodec``: the stream mesh
+                             (``mesh``), one ``device_inflate`` per local
+                             shard, dictionary broadcast and reduced stats
+                             (``shard``), process groups (``multihost``)
 - ``runtime.pipeline``       overlapped decode ‖ host resolve
 - ``runtime.session``        one batch: pack, decode, EFULL resume, then
                              fetch + host resolve or device resolve +
@@ -43,6 +48,8 @@ Layers (module names follow ``defl_tpu``)
 - host tier: ``errors``, ``constants``, ``metrics``, ``core`` (oracle,
   huffman, checksums, deflate_ref), ``runtime.pack``, ``runtime.native``
   (g++ build of ``csrc/defl_host.cc`` at first use), ``corpus``, ``cli``
+- entry points: ``bench_scaling`` (shard1 against shardN, the sharding's
+  overhead), ``dryrun`` (``entry``, ``dryrun_multichip``, spawned workers)
 
 On the CPU (no card): ``python -m pytest tests/test_torch_*.py -q``.  On
 the card: ``python3 chip_smoke.py``, ``python -m pytest
@@ -54,6 +61,7 @@ from defl_tpu_torch.errors import (FLAG_VERIFY_ADLER32, FLAG_ZLIB, DeflError,
                                    Result)
 from defl_tpu_torch.api import (DeflateStream, InflateStream, deflate_batch,
                                 deflate_buffer, inflate_batch, inflate_buffer)
+from defl_tpu_torch.parallel.shard import DistributedCodec
 from defl_tpu_torch.runtime.large import inflate_large
 from defl_tpu_torch.runtime.pipeline import pipeline_inflate
 from defl_tpu_torch.runtime.session import device_deflate, device_inflate
@@ -63,4 +71,4 @@ __all__ = ["Result", "DeflError", "FLAG_ZLIB", "FLAG_VERIFY_ADLER32",
            "InflateStream", "inflate_buffer", "DeflateStream",
            "deflate_buffer", "inflate_batch", "deflate_batch",
            "inflate_large", "device_inflate", "device_deflate",
-           "pipeline_inflate", "DeviceInflateSession"]
+           "pipeline_inflate", "DeviceInflateSession", "DistributedCodec"]

@@ -117,15 +117,24 @@ adler32_batch_kernel(const uint8_t* __restrict__ data, long long row_stride,
 // stream, and ints.  data: uint8 rows of C bytes, row n at data +
 // n*row_stride; lengths: int32 [N]; out: uint32 [N].  Launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() (0 when
-// the launch was accepted).
+// the launch was accepted).  The calling thread's current device is set
+// to `device` for the launch and given back after it, as in
+// decode_stream.cu.
 extern "C" int adler32_batch_launch(const void* data, long long row_stride,
                                     int N, int C, const void* lengths,
                                     void* out, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  int prev = -1;
+  cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return (int)err;
-  if (N <= 0) return 0;
-  adler32_batch_kernel<<<N, THREADS, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)data, row_stride, C, (const int32_t*)lengths,
-      (uint32_t*)out);
-  return (int)cudaGetLastError();
+  if (prev != device) {
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (N > 0)
+    adler32_batch_kernel<<<N, THREADS, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)data, row_stride, C, (const int32_t*)lengths,
+        (uint32_t*)out);
+  err = cudaGetLastError();
+  if (prev != device) cudaSetDevice(prev);
+  return (int)err;
 }

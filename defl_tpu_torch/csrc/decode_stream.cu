@@ -1032,7 +1032,31 @@ inline int rows_vectorise(const void* words, int W) {
 
 // Plain C entries for ctypes: pointers to device memory, the caller's
 // stream, and ints.  Each launches on `stream`, does not synchronise, and
-// returns the first CUDA error (0 when the launch was accepted).
+// returns the first CUDA error (0 when the launch was accepted).  Each
+// leaves the calling thread's current device as it found it: a launch on
+// another card from a thread that works on one card (the sharded decode
+// runs one thread per card) must not change what that thread's calls
+// without a device argument mean.
+
+namespace {
+
+struct DeviceScope {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceScope(int device) {
+    err = cudaGetDevice(&prev);
+    if (err != cudaSuccess) {
+      prev = -1;
+      return;
+    }
+    if (prev != device) err = cudaSetDevice(device);
+  }
+  ~DeviceScope() {
+    if (prev >= 0) cudaSetDevice(prev);
+  }
+};
+
+}  // namespace
 
 // One launch per decode: st [20, N], lens [40, N], count/first/offs
 // [N, 3, 16], maxlen [N, 3] and syms [N, 116] are read and updated in
@@ -1048,7 +1072,8 @@ extern "C" int decode_stream_launch(
     void* syms, const void* words, int W, int shared, void* tok, void* meta,
     const void* order, int N, int n_steps, int has_dict, int threads,
     int lanes_per_warp, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope scope(device);
+  cudaError_t err = scope.err;
   if (err != cudaSuccess) return (int)err;
   if (N <= 0) return 0;
   if (threads < 32 || (threads & 31) || lanes_per_warp < 1 ||
@@ -1080,7 +1105,8 @@ extern "C" int decode_chunk_launch(void* st, void* lens, const void* words,
                                    const void* adjoff, const void* maxlen,
                                    const void* syms, void* tok, int N, int K,
                                    int has_dict, void* stream, int device) {
-  cudaError_t err = cudaSetDevice(device);
+  DeviceScope scope(device);
+  cudaError_t err = scope.err;
   if (err != cudaSuccess) return (int)err;
   if (N <= 0) return 0;
   const int blocks = (N + THREADS - 1) / THREADS;

@@ -9,6 +9,8 @@ between the two by where the tensors lie are in ``ops/checksums.py``.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 #: the widest row the kernel's 64-bit per-thread sums hold (see the
@@ -16,8 +18,11 @@ import torch
 #: ceiling
 MAX_ROW_BYTES = 1 << 30
 
-#: launches of the CUDA kernel since import (or since a caller reset it)
+#: launches of the CUDA kernel since import (or since a caller reset it);
+#: shards on several cards launch from threads of their own, so the count
+#: is raised under a lock
 launches = 0
+_count_lock = threading.Lock()
 
 
 def adler32_batch_cuda(data: torch.Tensor,
@@ -68,5 +73,6 @@ def adler32_batch_cuda(data: torch.Tensor,
         raise RuntimeError(f"adler32_batch kernel launch failed: CUDA error "
                            f"{rc}")
     global launches
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

@@ -51,6 +51,8 @@ they are this call's own copies of the carry.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -81,9 +83,11 @@ ST_KEYS = ("state", "bitpos", "final", "hlit", "hdist", "hclen", "idx",
 PAD_WORDS = 8
 
 #: launches of the stream kernel (one per decode_tokens call on CUDA) and
-#: of the chunk kernel, since import or since a caller reset them
+#: of the chunk kernel, since import or since a caller reset them; raised
+#: under a lock, since the shards of a sharded decode launch from threads
 launches = 0
 chunk_launches = 0
+_count_lock = threading.Lock()
 #: the stream kernel's block (threads) and how many threads of each warp
 #: own a lane; a block's lanes share its shared memory
 STREAM_THREADS = 128
@@ -162,7 +166,8 @@ def decode_chunk(st_pk, lens_pk, words, bound, adjoff, maxlen, syms,
         raise RuntimeError(f"decode_chunk kernel launch failed: CUDA error "
                            f"{rc}")
     global chunk_launches
-    chunk_launches += 1
+    with _count_lock:
+        chunk_launches += 1
     return tok_out, st_pk, lens_pk
 
 
@@ -609,7 +614,8 @@ def _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words,
                            f"{rc} ({threads} threads a block, "
                            f"{lanes_per_warp} lanes a warp)")
     global launches
-    launches += 1
+    with _count_lock:
+        launches += 1
 
 
 def _read_meta(meta):

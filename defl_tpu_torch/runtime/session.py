@@ -91,7 +91,9 @@ def fetch_tokens(parts) -> np.ndarray:
 def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
                    dst_capacities=None, chunk_steps: int | None = None,
                    resolve: str = "host", device="cuda"):
-    """Batched device decode.  Returns (results, outputs, stats dict).
+    """Batched device decode.  Returns (results, outputs, stats dict);
+    the stats hold each lane's device ``status``, ``dst_pos`` and
+    ``bitpos`` (before the host retry) and the lanes retried on the host.
 
     Pass 1 (bitstream -> tokens) runs on ``device``.  Pass 2:
     ``resolve="host"`` ships the occupied token rows to the multithreaded
@@ -222,7 +224,8 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
         outputs.append(o)
     launched = decode_cu.launches - launches0
     adler_launched = checksums_cu.launches - adler0
-    stats = {"bitpos": bitpos, "dst_pos": dst_pos, "T": T, "C": C,
+    stats = {"bitpos": bitpos, "dst_pos": dst_pos, "status": status,
+             "T": T, "C": C,
              "host_fallbacks": fb_idx, "decode_chunk_launches": launched,
              "adler32_batch_launches": adler_launched}
     metrics.inc("device_inflate_batches")

@@ -761,3 +761,85 @@ def test_concurrent_device_deflate_on_the_card():
         with ThreadPoolExecutor(max_workers=2) as ex:
             got = list(ex.map(device_deflate, sets))
         assert got == want
+
+
+# ---- the sharded decode ------------------------------------------------------
+
+def _sharded(devices, **kw):
+    from defl_tpu_torch.parallel.mesh import make_stream_mesh
+    from defl_tpu_torch.parallel.shard import DistributedCodec
+
+    return DistributedCodec(make_stream_mesh(devices), **kw)
+
+
+@pytest.mark.parametrize("resolve", ["host", "device"])
+def test_sharded_codec_on_one_card_equals_device_inflate(resolve):
+    """DistributedCodec over cuda:0 alone: one launch, and what
+    device_inflate gives for the same streams, lane for lane."""
+    pays, zs = _payload_batch()
+    flags = FLAG_ZLIB | FLAG_VERIFY_ADLER32
+    codec = _sharded(["cuda:0"], resolve=resolve)
+    decode_cu.launches = 0
+    res, outs, st = codec.inflate(zs, flags, dst_capacities=8192)
+    assert decode_cu.launches == st["decode_launches"] == 1
+    r1, o1, s1 = device_inflate(zs, flags, dst_capacities=8192,
+                                resolve=resolve)
+    assert res == r1 and outs == o1 == pays
+    np.testing.assert_array_equal(st["bitpos"], s1["bitpos"])
+    assert st["ok_lanes"] == len(pays)
+    assert st["total_bytes"] == sum(map(len, pays))
+    assert st["host_fallbacks"] == [] and st["reduced_on"] is None
+    assert st["shards"] == 1
+
+
+def test_two_shards_on_one_card_equal_one_shard():
+    """["cuda:0", "cuda:0"]: two host threads on one card, one launch
+    each; the same lanes as one shard, and the calling thread's current
+    device is left as it was."""
+    pays, zs = _payload_batch()
+    one = _sharded(["cuda:0"]).inflate(zs, dst_capacities=8192)
+    current = torch.cuda.current_device()
+    decode_cu.launches = 0
+    two = _sharded(["cuda:0", "cuda:0"]).inflate(zs, dst_capacities=8192)
+    assert decode_cu.launches == two[2]["decode_launches"] == 2
+    assert torch.cuda.current_device() == current
+    assert two[0] == one[0] and two[1] == one[1] == pays
+    for k in ("total_bytes", "ok_lanes"):
+        assert two[2][k] == one[2][k], k
+    assert two[2]["shards"] == 2
+    np.testing.assert_array_equal(two[2]["bitpos"], one[2]["bitpos"])
+
+
+def test_world_of_one_nccl_group_with_a_dictionary(tmp_path):
+    """An NCCL group of one rank: the dictionary goes through the
+    broadcast and the stats through the all-reduce, both on the card."""
+    import torch.distributed as dist
+
+    from defl_tpu_torch import dryrun
+    from defl_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"file://{tmp_path / 'store'}", 1, 0,
+                         device="cuda:0", timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        codec = _sharded(["cuda:0"], dictionary=dryrun.DICTIONARY)
+        assert codec.mesh.grouped
+        pays, zs = dryrun.dict_streams(32)
+        decode_cu.launches = 0
+        res, outs, st = codec.inflate(zs, dst_capacities=512)
+        assert [int(r) for r in res] == [0] * 32 and outs == pays
+        assert decode_cu.launches == 1
+        assert st["reduced_on"] == "cuda:0" and st["ok_lanes"] == 32
+        assert st["total_bytes"] == sum(map(len, pays))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dryrun_multichip_on_the_card():
+    """dryrun_multichip(1): one spawned NCCL process on cuda:0."""
+    from defl_tpu_torch.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(1, device="cuda", timeout_s=300)
+    assert out["backend"] == "nccl" and out["ok_lanes"] == 2
+    assert out["ranks"][0]["launches"] == 1
+    assert out["ranks"][0]["reduced_on"] == "cuda:0"

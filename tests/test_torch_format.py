@@ -167,5 +167,5 @@ def test_chip_smoke_imports_only_the_port():
     assert "defl_tpu_torch" in roots
     assert not roots & {"defl_tpu", "jax", "jaxlib"}
     assert roots <= {"__future__", "concurrent", "json", "subprocess", "sys",
-                     "time", "zlib", "numpy", "torch",
+                     "tempfile", "time", "zlib", "numpy", "torch",
                      "defl_tpu_torch"}, roots

@@ -321,6 +321,11 @@ for n in names:
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "defl_tpu"))
 assert not foreign, foreign
+# the sharded decode and the modules its spawned workers import
+for n in ("defl_tpu_torch.parallel.mesh", "defl_tpu_torch.parallel.shard",
+          "defl_tpu_torch.parallel.multihost", "defl_tpu_torch.dryrun",
+          "defl_tpu_torch.bench_scaling"):
+    assert n in names, n
 print(len(names), "clean")
 """
 
