@@ -1,6 +1,7 @@
 """Smoke run of defl_tpu_torch on one CUDA card: the batched inflate main
 path, the device-resident inflate, the streaming session, the split decode
-of one huge stream, the hybrid encode and the sharded decode.
+of one huge stream, the hybrid encode, the sharded decode, and malformed
+input among good streams.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -73,7 +74,24 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      broadcast, the stats reduced on the card; (c) two spawned processes
      that share cuda:0 under gloo, each decoding its 4096 host-major rows
      with one launch (the streams reach them through a file), then
-     dictionary streams that only rank 0 was given the dictionary of.
+     dictionary streams that only rank 0 was given the dictionary of;
+ 11. malformed input (a malformed stream never poisons its batch): (a) the
+     bench batch with every 8th lane swapped for a malformed stream
+     (corpus.mixed_batch: truncated, bit-flipped, garbage, garbage after a
+     zlib header), one launch of the stream kernel timed in turns with the
+     clean batch's: every corpus lane ends where it ends in the clean
+     launch (status, dst_pos, bitpos) and resolves to its payload, the
+     malformed lanes equal the chunk loop's decode by the comparator;
+     (b) defl_tpu_torch.malformed on the same batch: both resolvers (the
+     device one with the trailer check on the adler32 kernel), every lane
+     the port oracle's class and an OK lane its bytes, and the bench's
+     64 MiB stream with 16 bit flips and a cut tail through
+     inflate_large(use_device=True) in one launch, against the
+     host-parallel engine; (c) the same module over a 256-lane mixed batch
+     under compute-sanitizer memcheck (any report fails the run), then
+     racecheck over 64 lanes if it ends within its budget; where the tool
+     is absent, or refuses the card ("Device not supported"), the run says
+     so and records "sanitizer": null.
 Each kernel's count of launches is set to 0 just before the path that
 uses it and read just after.  The line before the last holds the card's
 name and power limit, the one before it the kernels' JSON record; the
@@ -139,6 +157,12 @@ BUILD_OPS_PER_SYMBOL = 12 + 6 * 1280 // 320
 # A short chunk keeps the steps a lane idles before its builds few.
 PLAIN_LANES = 64
 PLAIN_K = 128
+# [11]: the bench batch with every 8th lane malformed (corpus.mixed_batch's
+# seed), the rounds of clean and mixed launches timed in turns; and what
+# compute-sanitizer runs: (tool, lanes of the mixed batch, seconds)
+MIXED_SEED = 11
+MIXED_ROUNDS = 3
+SANITIZER_RUNS = (("memcheck", 256, 420), ("racecheck", 64, 240))
 
 
 def log(*a):
@@ -970,6 +994,160 @@ def phase_sharded(decode_cu, metrics, streams, payloads, raw):
             "raw_device_inflate_s": ov["raw_device_inflate_s"]}
 
 
+def phase_mixed_launch(decode_cu, ib, pack, native, mixed, bad, streams,
+                       payloads):
+    """11a: the clean and the mixed batch in one launch each, in turns;
+    the corpus lanes of the mixed launch against the clean launch, its
+    malformed lanes against the chunk loop."""
+    dev = torch.device("cuda")
+    up = lambda a: torch.from_numpy(a).to(dev)
+    T = ib.step_budget(BLOCK)
+    args, packed = {}, {}
+    for name, batch in (("clean", streams), ("mixed", mixed)):
+        p = pack.pack_streams(batch, 1, BLOCK)
+        packed[name] = p
+        args[name] = (up(p.words.view(np.int32)), up(p.nbits), up(p.zflag),
+                      up(p.dst_cap))
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    launch = decode_cu._launch_stream
+
+    def timed_launch(*a, **k):
+        e0.record()
+        launch(*a, **k)
+        e1.record()
+
+    times = {"clean": [], "mixed": []}
+    runs = {}
+    decode_cu._launch_stream = timed_launch
+    try:
+        for _ in range(MIXED_ROUNDS + 1):    # the first round warms up
+            for name in ("clean", "mixed"):
+                runs[name] = None            # one token buffer at a time
+                runs[name] = decode_cu.decode_tokens(*args[name], T=T)
+                torch.cuda.synchronize()
+                times[name].append(e0.elapsed_time(e1))
+    finally:
+        decode_cu._launch_stream = launch
+    times = {k: v[1:] for k, v in times.items()}
+
+    # the corpus lanes: the clean launch's end state, and their payloads
+    good = np.setdiff1d(np.arange(N_STREAMS), bad)
+    state = {name: {k: c[k].cpu().numpy() for k in ("status", "dst_pos",
+                                                    "bitpos")}
+             for name, (_, c) in runs.items()}
+    moved = sorted({int(i) for k in state["clean"] for i in good[
+        state["clean"][k][good] != state["mixed"][k][good]]})
+    tok, carry = runs["mixed"]
+    del runs
+    dst = state["mixed"]["dst_pos"]
+    toks = tok[:carry["tok_rows"]].T.contiguous().cpu().numpy().view(
+        np.uint32)
+    out = native.native_resolve_tokens(toks, packed["mixed"].words, dst,
+                                       BLOCK)
+    del toks
+    wrong = [int(i) for i in good
+             if out[i, : dst[i]].tobytes() != payloads[i]]
+    if moved or wrong:
+        raise AssertionError(f"[11a] corpus lanes of the mixed launch: "
+                             f"{len(moved)} ended elsewhere than in the clean "
+                             f"launch (first {moved[:5]}), {len(wrong)} not "
+                             f"their payload (first {wrong[:5]})")
+    del out
+
+    # the malformed lanes of that launch against the chunk loop over the
+    # same lanes of its arguments
+    sub = [a[torch.as_tensor(bad, device=dev)] for a in args["mixed"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parts, pc = [], None
+    for _ in range(40):
+        ptok, pc = decode_cu.decode_tokens(*sub, T=T, K=PLAIN_K, carry=pc,
+                                           _chunk=decode_cu.decode_chunk_ref)
+        parts.append((ptok, pc["tok_rows"]))
+        if not (pc["status"] == ib.STATUS_RUNNING).any():
+            break
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = held_equal(decode_cu, decode_cu.select_lanes((tok, carry), bad),
+                     (parts, pc), f"[11a] {len(bad)} malformed lanes")
+    classes = {str(k): int(v) for k, v in zip(*np.unique(
+        state["mixed"]["status"][bad], return_counts=True))}
+    return {"ms": float(np.median(times["mixed"])),
+            "clean_ms": float(np.median(times["clean"])), "times": times,
+            "malformed_lanes": len(bad), "device_classes": classes,
+            "corpus_lanes_moved": len(moved), "corpus_lanes_wrong": len(wrong),
+            "max_abs_err": err, "plain_ms": plain_ms,
+            "plain_steps": sum(r for _, r in parts) // 2}
+
+
+def run_bounded(cmd, budget_s, cwd):
+    """``cmd`` in a session of its own, killed with everything it started
+    when it outlasts ``budget_s``: (exit code or None, output)."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(cmd, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=budget_s)
+        return proc.returncode, out
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        return None, out
+
+
+def phase_sanitizer():
+    """11c: the malformed check of defl_tpu_torch.malformed (both
+    resolvers, the split decode) in a subprocess under compute-sanitizer:
+    memcheck, then racecheck if it ends within its budget.  None when the
+    tool is absent, or present but refusing the card (its own "Device not
+    supported": it then checks nothing)."""
+    import os
+
+    from defl_tpu_torch.malformed import sanitizer_path, sanitizer_refusal
+
+    san = sanitizer_path()
+    if san is None:
+        log("[11c] compute-sanitizer is absent (not on the PATH, not under "
+            "the CUDA toolkit): the sanitizer did NOT run")
+        return None
+    here = os.path.dirname(os.path.abspath(__file__))
+    rec = {"tool": san}
+    for tool, lanes, budget in SANITIZER_RUNS:
+        cmd = [san, "--tool", tool, "--error-exitcode", "1", sys.executable,
+               "-m", "defl_tpu_torch.malformed", "--lanes", str(lanes)]
+        t0 = time.perf_counter()
+        rc, out = run_bounded(cmd, budget, here)
+        secs = time.perf_counter() - t0
+        summary = [ln.strip() for ln in out.splitlines()
+                   if "ERROR SUMMARY" in ln or "RACECHECK SUMMARY" in ln]
+        refused = sanitizer_refusal(out)
+        if refused:
+            log(f"[11c] {san} is present but refuses this card ({refused!r}, "
+                f"after {secs:.0f} s): the sanitizer did NOT run, and no "
+                f"tool checked the launches")
+            return None
+        if rc is None and tool != "memcheck":
+            rec[tool] = {"lanes": lanes, "finished": False, "budget_s": budget}
+            log(f"[11c] {tool} over {lanes} lanes did not end within its "
+                f"{budget} s budget: not run to its end")
+            continue
+        if rc != 0:
+            raise AssertionError(f"[11c] {tool} over {lanes} lanes: exit {rc} "
+                                 f"after {secs:.0f} s, {summary}; output "
+                                 f"ends:\n{out[-3000:]}")
+        rec[tool] = {"lanes": lanes, "finished": True, "errors": 0,
+                     "s": secs, "summary": summary[-1:]}
+        log(f"[11c] {tool} over the {lanes}-lane mixed batch, both "
+            f"resolvers and the mutated split decode: clean "
+            f"({summary[-1] if summary else 'no summary line'}), "
+            f"{secs:.1f} s; the checked run's line: "
+            f"{out.strip().splitlines()[-1][:300] if out.strip() else ''}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -977,7 +1155,7 @@ def main() -> int:
         return 1
 
     import defl_tpu_torch as dt
-    from defl_tpu_torch import metrics
+    from defl_tpu_torch import corpus, malformed, metrics
     from defl_tpu_torch.breakdown import (deflate_stages, lane_rows,
                                           large_stages)
     from defl_tpu_torch.corpus import make_silesia_like
@@ -1225,6 +1403,46 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = phase_sharded(decode_cu, metrics, streams, payloads, raw)
 
+    # ---- 11. malformed lanes among the corpus's ----
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mixed, bad = corpus.mixed_batch(streams, payloads, MIXED_SEED)
+    mx = phase_mixed_launch(decode_cu, ib, pack, native, mixed, bad, streams,
+                            payloads)
+    log(f"[11a] the batch with every 8th lane malformed ({len(bad)} lanes: "
+        f"truncated, bit-flipped, garbage, garbage after a zlib header; seed "
+        f"{MIXED_SEED}), one launch: the {N_STREAMS - len(bad)} corpus lanes "
+        f"end where they end in the clean launch (status, dst_pos, bitpos) "
+        f"and are their payloads ({mx['corpus_lanes_moved']} moved, "
+        f"{mx['corpus_lanes_wrong']} wrong); the {len(bad)} malformed lanes "
+        f"== the chunk loop by the comparator (max_abs_err "
+        f"{mx['max_abs_err']}; {mx['plain_ms']:.0f} ms, {mx['plain_steps']} "
+        f"steps), device classes {mx['device_classes']}; launch "
+        f"{mx['ms']:.4f} ms mixed against {mx['clean_ms']:.4f} ms clean "
+        f"(medians of {MIXED_ROUNDS} rounds in turns: {mx['times']}; [2c] "
+        f"{s_ms:.4f} ms)")
+    mal = malformed.run(N_STREAMS, BLOCK, MIXED_SEED, "cuda",
+                          batch=(payloads, streams))
+    if not mal["ok"]:
+        raise AssertionError(f"[11b] malformed lanes: {json.dumps(mal)}")
+    for resolve in ("host", "device"):
+        r = mal[f"resolve_{resolve}"]
+        log(f"[11b] device_inflate(resolve='{resolve}'"
+            f"{', verify adler32' if resolve == 'device' else ''}) of the "
+            f"mixed batch: every lane its oracle class and an OK lane its "
+            f"bytes ({r['n_differ']} lanes differ), corpus lanes' end state "
+            f"the clean batch's ({len(r['corpus_lanes_moved'])} moved), "
+            f"{r['host_fallbacks']} host fallbacks; classes {r['classes']}; "
+            f"launches {r['launches']}; wall {r['wall_s']:.3f} s")
+    lg = mal["large"]
+    log(f"[11b] the 64 MiB stream with {lg['flips']} bit flips and a cut "
+        f"tail ({lg['bytes']} B): inflate_large(use_device=True) class "
+        f"{lg['class']}, the host-parallel engine's "
+        f"{lg['host_parallel_class']}; route {lg['route']}, {lg['launches']} "
+        f"launch, {lg['lanes_valid']} of {lg['lanes']} lanes valid")
+    san = phase_sanitizer()
+    log(f"[11] malformed input took {time.perf_counter() - t_phase:.1f} s")
+
     # decode_stream: the whole-batch launch of [2c]; plain_ms is the chunk
     # loop's time for plain_lanes of its lanes (the twin's time hardly
     # depends on the lane count).  The chunk kernel of [2b] shares the
@@ -1257,13 +1475,29 @@ def main() -> int:
             "lanes": larges[0]["stages"]["lanes"],
             "small_ms": sp_ms, "small_plain_ms": sp_plain_ms},
         # the sharded decode of [10]: launches of each part, one per shard
-        "sharded": sharded}, {
+        "sharded": sharded,
+        # [11]: the mixed batch's launch beside the clean one, its malformed
+        # lanes against the chunk loop, the resolvers' classes, the mutated
+        # large stream; and compute-sanitizer's runs (None: tool absent)
+        "malformed": {**{k: mx[k] for k in (
+            "ms", "clean_ms", "malformed_lanes", "device_classes",
+            "corpus_lanes_moved", "corpus_lanes_wrong", "max_abs_err",
+            "plain_ms")},
+            "classes": {r: mal[f"resolve_{r}"]["classes"]
+                        for r in ("host", "device")},
+            "lanes_differ": sum(mal[f"resolve_{r}"]["n_differ"]
+                                for r in ("host", "device")),
+            "large": lg},
+        "sanitizer": san}, {
         "name": "adler32_batch", "route": "cuda",
         "source": "defl_tpu_torch/csrc/adler32_batch.cu",
         "replaces": "defl_tpu/ops/pallas/checksums_pl.py:53",
         "launches": adler_l6, "max_abs_err": max(err_a_small, err_a_full),
         "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound,
-        "bound_by": a_by, "library_ms": None}]
+        "bound_by": a_by, "library_ms": None,
+        "malformed_launches": mal["resolve_device"]["launches"][
+            "adler32_batch"],
+        "sanitizer": san}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,10 @@
 ``defl_tpu/bench_scaling.py``, with its modes and JSON keys).
 
   - ``scaling`` (``measure``): wall of the SAME batch decoded by
-    ``DistributedCodec`` over one device and over every local device:
-    ``shard1_s``, ``shard<n>_s``, ``shard<n>_speedup``;
+    ``DistributedCodec`` over one device and over every local device, in
+    interleaved rounds (shard1 then shardN in each): ``shard1_s``,
+    ``shard<n>_s``, ``shard<n>_speedup`` from the best of each, and the
+    rounds themselves (``shard1_rounds_s``, ``shard<n>_rounds_s``);
   - ``pinned1`` (``measure_pinned1``): one shard on the CPU with the
     process pinned to one core and one torch thread, set before any work:
     the single-core baseline for a cores-matched efficiency;
@@ -55,7 +57,10 @@ def _check(res, outs, payloads):
 def measure(n_streams: int = 256, block: int = 32768, reps: int = 5,
             devices=None):
     """Shard1 against shardN over ``devices`` (default: every visible
-    card), best of ``reps`` after one warm-up each."""
+    card): one warm-up each, then ``reps`` interleaved rounds (shard1,
+    then shardN, in every round), best of each; the rounds themselves come
+    back beside the best (``shard1_rounds_s``, ``shard<n>_rounds_s``), so
+    a host that drifts shows in them instead of in the ratio."""
     from defl_tpu_torch.parallel.mesh import make_stream_mesh
     from defl_tpu_torch.parallel.shard import DistributedCodec
 
@@ -63,21 +68,22 @@ def measure(n_streams: int = 256, block: int = 32768, reps: int = 5,
     payloads, streams = _batch(n_streams, block)
     raw_bytes = sum(len(p) for p in payloads)
 
-    def time_codec(codec):
-        best = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            res, outs, _ = codec.inflate(streams, dst_capacities=block)
-            best = min(best, time.perf_counter() - t0)
-            _check(res, outs, payloads)
-        return best
+    def timed(codec):
+        t0 = time.perf_counter()
+        res, outs, _ = codec.inflate(streams, dst_capacities=block)
+        dt = time.perf_counter() - t0
+        _check(res, outs, payloads)
+        return dt
 
     codec1 = DistributedCodec(make_stream_mesh(devs[:1]))
     codec_n = DistributedCodec(make_stream_mesh(devs))
-    codec1.inflate(streams, dst_capacities=block)   # warm-up
-    codec_n.inflate(streams, dst_capacities=block)
-    shard1_s = time_codec(codec1)
-    shardn_s = time_codec(codec_n)
+    timed(codec1)                                   # warm-up
+    timed(codec_n)
+    shard1_times, shardn_times = [], []
+    for _ in range(reps):
+        shard1_times.append(timed(codec1))
+        shardn_times.append(timed(codec_n))
+    shard1_s, shardn_s = min(shard1_times), min(shardn_times)
     n = len(devs)
     return {
         "scaling_n_devices": n,
@@ -85,6 +91,8 @@ def measure(n_streams: int = 256, block: int = 32768, reps: int = 5,
         "shard1_s": shard1_s,
         f"shard{n}_s": shardn_s,
         f"shard{n}_speedup": shard1_s / shardn_s,
+        "shard1_rounds_s": shard1_times,
+        f"shard{n}_rounds_s": shardn_times,
         "device": _device_name(devs[0]),
     }
 

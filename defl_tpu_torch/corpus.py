@@ -1,11 +1,18 @@
 """The bench corpus maker (the port's own copy of
 ``defl_tpu/bench.py``'s ``make_silesia_like``): the same bytes for the
-same seed.
+same seed; and the malformed streams the fuzz feeds the decoders
+(``fuzz_cases``, drawn as tests/test_fuzz.py's ``_gen_cases`` draws them).
 """
 
 from __future__ import annotations
 
 import random
+import zlib
+
+#: the kinds of stream ``fuzz_cases`` draws: a valid zlib stream, one cut
+#: short, one with 1-4 bit flips, random garbage, a valid zlib header
+#: before a garbage body
+VALID, TRUNCATED, BIT_FLIPS, GARBAGE, GARBAGE_BODY = range(5)
 
 
 def make_silesia_like(total_bytes: int, block: int = 65536, seed: int = 42):
@@ -67,3 +74,55 @@ def make_silesia_like(total_bytes: int, block: int = 65536, seed: int = 42):
         produced += len(b)
     n_total = (total_bytes + block - 1) // block
     return [blocks[i % len(blocks)] for i in range(n_total)]
+
+
+def fuzz_cases(seed: int, n: int, payloads) -> list[tuple[int, bytes]]:
+    """``n`` (kind, stream) pairs from ``random.Random(seed)`` over
+    ``payloads``: the streams of tests/test_fuzz.py's ``_gen_cases``, byte
+    for byte, when given its payloads."""
+    rng = random.Random(seed)
+    cases = []
+    for _ in range(n):
+        kind = rng.randrange(5)
+        if kind == VALID:
+            data = zlib.compress(rng.choice(payloads), rng.randrange(10))
+        elif kind == TRUNCATED:
+            d = zlib.compress(rng.choice(payloads), 6)
+            data = d[: rng.randrange(1, max(2, len(d)))]
+        elif kind == BIT_FLIPS:
+            d = bytearray(zlib.compress(rng.choice(payloads), 6))
+            for _ in range(rng.randrange(1, 5)):
+                if d:
+                    p = rng.randrange(len(d))
+                    d[p] ^= 1 << rng.randrange(8)
+            data = bytes(d)
+        elif kind == GARBAGE:
+            data = rng.randbytes(rng.randrange(1, 200))
+        else:
+            data = b"\x78\x9c" + rng.randbytes(rng.randrange(1, 150))
+        cases.append((kind, data))
+    return cases
+
+
+def fuzz_payloads(blocks) -> list[bytes]:
+    """What ``fuzz_cases`` compresses, cut from ``make_silesia_like`` blocks
+    the way tests/test_fuzz.py cuts its corpus: 400 bytes of text, 255 of
+    semi-random bytes, 300 of a short period, nothing, one byte."""
+    return [blocks[0][:400], blocks[4][:255], blocks[3][:300], b"", b"a"]
+
+
+def mixed_batch(streams, blocks, seed: int, every: int = 8):
+    """``streams`` with every ``every``-th lane swapped for a malformed
+    stream (``fuzz_cases`` of every kind but VALID over
+    ``fuzz_payloads(blocks)``).  Returns (the new list, the swapped lanes'
+    indices)."""
+    lanes = list(range(0, len(streams), every))
+    bad = [d for k, d in fuzz_cases(seed, 4 * len(lanes) + 16,
+                                    fuzz_payloads(blocks)) if k != VALID]
+    if len(bad) < len(lanes):
+        raise ValueError(f"seed {seed} drew {len(bad)} malformed streams "
+                         f"for {len(lanes)} lanes")
+    mixed = list(streams)
+    for i, d in zip(lanes, bad):
+        mixed[i] = d
+    return mixed, lanes

@@ -469,12 +469,22 @@ __device__ __forceinline__ bool step(Lane& L, MEM& M, int has_dict,
         int clen2, deb;
         const int dsym = M.template canon<2>(pk2, clen2);
         const int dv = dist_from_sym(dsym, pk2, clen2, deb);
-        if (clen2 == 0 ? avail2 < M.maxlen(2) : clen2 + deb > avail2) {
+        // the code first: a hole or a distance code of 30 or 31 is an
+        // error before any extra bits are read (the oracle's order)
+        if (clen2 == 0 ? avail2 < M.maxlen(2) : clen2 > avail2) {
           stalled = true;
           break;
         }
-        if (clen2 == 0 || dsym > 29 || dv > L.dst_pos + L.reach) {
-          nstate = S_ERR;  // bad code, bad symbol, or too far back
+        if (clen2 == 0 || dsym > 29) {
+          nstate = S_ERR;  // no code, or no distance symbol
+          break;
+        }
+        if (clen2 + deb > avail2) {
+          stalled = true;
+          break;
+        }
+        if (dv > L.dst_pos + L.reach) {
+          nstate = S_ERR;  // too far back
           break;
         }
         if (L.dst_pos + len_v > L.cap) {
@@ -653,8 +663,16 @@ __device__ __forceinline__ bool step(Lane& L, MEM& M, int has_dict,
           if (avail < M.maxlen(0)) stalled = true; else nstate = S_ERR;
           break;
         }
+        if (clen > avail) {
+          stalled = true;
+          break;
+        }
+        if (sym == 16 && L.idx == 0) {  // a repeat with nothing before it:
+          nstate = S_ERR;               // an error before its extra bits
+          break;
+        }
         const int ebits = sym == 16 ? 2 : sym == 17 ? 3 : sym == 18 ? 7 : 0;
-        if (clen + ebits > avail) {  // covers clen > avail
+        if (clen + ebits > avail) {
           stalled = true;
           break;
         }
@@ -662,7 +680,7 @@ __device__ __forceinline__ bool step(Lane& L, MEM& M, int has_dict,
         const int rep = sym < 16 ? 1 : (sym == 16 || sym == 17) ? 3 + ev
                                                                 : 11 + ev;
         const int wval = sym < 16 ? sym : sym == 16 ? L.prev : 0;
-        if ((sym == 16 && L.idx == 0) || L.idx + rep > L.hlit + L.hdist) {
+        if (L.idx + rep > L.hlit + L.hdist) {
           nstate = S_ERR;
           break;
         }
@@ -760,7 +778,7 @@ __device__ __forceinline__ bool build_table(StreamMem& M, int32_t* count,
 #pragma unroll
   for (int l = 1; l < 16; ++l) {
     const int c = (int)M.at(OFF_CNT + l);
-    left = (left << 1) - c;
+    left = 2 * left - c;  // goes negative once oversubscribed: no shift
     oversub |= left < 0;
     code = (code + cprev) << 1;
     count[KIND * 16 + l] = c;

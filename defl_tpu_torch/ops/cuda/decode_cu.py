@@ -373,6 +373,11 @@ def _ref_step(st, lens, words, tabs, nbits, cap, limit, reach, in_base,
             is18 = sym == 18
             ebits = torch.where(is16, 2, torch.where(
                 is17, 3, torch.where(is18, 7, 0)))
+            # a repeat with nothing before it is an error before its extra
+            # bits are read (≙ the oracle; the JAX step stalls on them)
+            no_prev = m & is16 & (idx == 0)
+            nstate = torch.where(no_prev, S_ERR, nstate)
+            m = m & ~no_prev
             lens_stall = m & (clen + ebits > avail)
             stalled = stalled | lens_stall
             m = m & ~lens_stall
@@ -380,7 +385,7 @@ def _ref_step(st, lens, words, tabs, nbits, cap, limit, reach, in_base,
             rep = torch.where(is_lit_len, 1, torch.where(
                 is16 | is17, 3 + ev, 11 + ev))
             wval = torch.where(is_lit_len, sym, torch.where(is16, prev, 0))
-            bad = (is16 & (idx == 0)) | (idx + rep > hlit + hdist)
+            bad = idx + rep > hlit + hdist
             lok = m & ~bad
             nstate = torch.where(m & bad, S_ERR, nstate)
             lens = ib._write_lens_run(lens, lok & (wval > 0), idx, idx + rep,
@@ -410,9 +415,15 @@ def _ref_step(st, lens, words, tabs, nbits, cap, limit, reach, in_base,
 
             dv, deb = ib._dist_from_sym(sym2, peek2, clen2)
             consumed2 = clen2 + deb
-            d_stall = is_len & ((~found2 & (avail2 < ml2))
-                                | (found2 & (consumed2 > avail2)))
-            d_err = is_len & ~d_stall & ((found2 & (sym2 > 29)) | ~found2)
+            # the code first: a hole or a distance code of 30 or 31 is an
+            # error before any extra bits are read (≙ the oracle; the JAX
+            # step stalls on the 13 extra bits such a code would have)
+            code_stall = (~found2 & (avail2 < ml2)) | (found2
+                                                       & (clen2 > avail2))
+            bad_code = ~found2 | (sym2 > 29)
+            d_stall = is_len & (code_stall
+                                | (~bad_code & (consumed2 > avail2)))
+            d_err = is_len & ~code_stall & bad_code
             md = is_len & ~d_stall & ~d_err
             too_far = md & (dv > dst_pos + reach)   # ≙ infl.c:1286
             m_full = md & ~too_far & (dst_pos + len_v > cap)

@@ -21,10 +21,10 @@ only when the caller names it.
 
 from __future__ import annotations
 
-import os
-
 import torch
 import torch.distributed as dist
+
+from defl_tpu_torch.parallel.multihost import local_card
 
 STREAM_AXIS = "streams"
 
@@ -90,13 +90,12 @@ def _local_devices(devices) -> list[torch.device]:
     if not torch.cuda.is_available():
         raise RuntimeError("make_stream_mesh: no CUDA device (pass devices="
                            "['cpu', ...] to run the plain versions)")
-    n = torch.cuda.device_count()
     if dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
-        # one rank per card, as torchrun starts them
-        local = int(os.environ.get("LOCAL_RANK", dist.get_rank() % n))
-        return [torch.device("cuda", local)]
-    return [torch.device("cuda", i) for i in range(n)]
+        # one rank per card, as torchrun starts them: the card
+        # multihost.initialize bound this rank's group to
+        return [torch.device("cuda", local_card(dist.get_rank()))]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def make_stream_mesh(devices=None) -> StreamMesh:

@@ -16,6 +16,13 @@ environment), ``local_stream_slice(n)`` and ``global_codec()``.  Outside
 torchrun, pass the rendezvous yourself: ``"host:port"`` (TCP) or a
 ``file://`` path that every rank can reach, and the process count and
 this process's rank.
+
+Which card a rank owns is one rule, ``local_card``: ``LOCAL_RANK`` from
+the environment, else the rank (``process_id`` as passed, else ``RANK``
+from the environment), else 0, modulo the visible cards.  ``initialize``
+binds the NCCL group and the current device to that card, and the mesh
+(``mesh._local_devices``) decodes and runs its collectives on the same
+one.
 """
 
 from __future__ import annotations
@@ -25,6 +32,16 @@ import os
 
 import torch
 import torch.distributed as dist
+
+
+def local_card(rank: int | None = None) -> int:
+    """The index of the card this process owns: ``LOCAL_RANK``, else
+    ``rank``, else ``RANK`` from the environment, else 0, modulo
+    ``torch.cuda.device_count()``."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        local = rank if rank is not None else os.environ.get("RANK", 0)
+    return int(local) % torch.cuda.device_count()
 
 
 def initialize(coordinator_address: str | None = None,
@@ -37,8 +54,8 @@ def initialize(coordinator_address: str | None = None,
     torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
     ``WORLD_SIZE``).  ``device`` is where this rank's shards decode: a
     CUDA device means the ``nccl`` backend, bound to that card (``"cuda"``
-    alone is the card of ``LOCAL_RANK``, else of the rank modulo the
-    cards), the CPU means ``gloo``.
+    alone is ``local_card(process_id)``, the card the mesh gives this
+    rank), the CPU means ``gloo``.
     ``backend`` overrides that choice (gloo for ranks that share one
     card: two NCCL ranks may not).  Nothing switches backend on failure.
     """
@@ -63,9 +80,7 @@ def initialize(coordinator_address: str | None = None,
         kwargs["timeout"] = datetime.timedelta(seconds=timeout_s)
     if backend == "nccl":
         if dev.index is None:
-            local = os.environ.get("LOCAL_RANK")
-            dev = torch.device("cuda", int(local) if local is not None else
-                               (process_id or 0) % torch.cuda.device_count())
+            dev = torch.device("cuda", local_card(process_id))
         torch.cuda.set_device(dev)
         kwargs["device_id"] = dev
     dist.init_process_group(backend, init_method=init_method, **kwargs)

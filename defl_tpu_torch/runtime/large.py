@@ -26,23 +26,22 @@ of its segment.  At worst (no candidate validates) the call is the serial
 C++ engine.
 
 Differences from the JAX module:
-- ``device`` is explicit, CUDA by default; without a card the call raises
-  unless ``use_device=False`` names the host engine.  ``device="cpu"``
-  runs the decode kernel's plain version.
-- ``use_device=None`` takes the card whenever the body fits its cursors
-  and has more than two segments; there is no environment switch.
+- ``device`` is explicit, CUDA by default; ``use_device=True`` without a
+  card raises.  ``device="cpu"`` runs the decode kernel's plain version.
+- ``use_device=None`` (the default) is the host-parallel engine, as the
+  JAX module's default is; there is no environment switch.  The card
+  route is taken by name: ``use_device=True``, or
+  ``batch_inflate(backend="device")`` for a stream past the lane limit.
 - The body goes up once, from page-locked memory on a side stream, while
   the host finds the block starts; exactly the occupied token rows come
   back (``session.fetch_tokens``).
-- The two quiet reroutes of the JAX module (a body past the int32 bit
-  cursors takes the host-parallel engine; too few segments or candidates
-  leave the serial stitch) show: ``stats_out["route"]`` is ``"device"``,
-  ``"host_parallel"`` or ``"serial"``, and ``metrics`` counts
-  ``large_device_lanes``, ``large_device_lanes_valid`` and, for every
-  call that would have taken the device and ran no lane there,
-  ``large_device_rerouted``.  A caller who NAMED the device
-  (``use_device=True``) gets a ``ValueError`` for a body past the cursors
-  instead of the host engine.
+- The JAX module's quiet reroutes of ``use_device=True`` show: too few
+  segments or candidates leave the serial stitch, ``stats_out["route"]``
+  is ``"device"``, ``"host_parallel"`` or ``"serial"``, and ``metrics``
+  counts ``large_device_lanes``, ``large_device_lanes_valid`` and, for
+  every call that named the device and ran no lane there,
+  ``large_device_rerouted``; a body past the int32 bit cursors raises
+  ``ValueError`` instead of taking the host engine.
 - The stitch gets ``out[:cap_total]``: a caller buffer larger than the
   declared ``dst_capacity`` is filled up to the capacity only, and EFULL
   comes back past it.  (The JAX module hands its stitch the whole buffer.)
@@ -83,10 +82,8 @@ def device_route_allowed(body_size: int) -> bool:
 
     The decoder's shared-input mode addresses the body with int32 *bit*
     cursors, which bounds it to just under 256 MiB of compressed input
-    (less a guard for a lane's lookahead).  Larger bodies take the
-    host-parallel engine, whose cursors are int64, under
-    ``use_device=None`` (``stats_out["route"]`` says so) and raise under
-    ``use_device=True``."""
+    (less a guard for a lane's lookahead).  ``use_device=True`` raises
+    for a larger body; the host-parallel engine's cursors are int64."""
     return 8 * body_size < (1 << 31) - (1 << 22)
 
 
@@ -144,16 +141,16 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     Two speculative block-parallel engines share the find, validate and
     stitch design (module docstring):
 
-    - ``use_device=True``, and ``None`` when the body allows it: segments
-      decode as lanes of the decode kernel on ``device`` over one body
-      that lies there; the host stitches.  Bodies at or above ~256 MiB
-      compressed exceed the int32 bit cursors (``device_route_allowed``):
-      under ``None`` they take the host-parallel engine, under ``True``
-      the call raises ``ValueError``.  A body of one or two segments, or
-      one in which the finder sees no block start (stored or fixed
-      blocks only), is decoded serially by the stitch, on the host;
-      ``metrics`` counts such a call as ``large_device_rerouted``.
-    - ``use_device=False``: the all-native parallel engine
+    - ``use_device=True``: segments decode as lanes of the decode kernel
+      on ``device`` over one body that lies there; the host stitches.
+      Bodies at or above ~256 MiB compressed exceed the int32 bit cursors
+      (``device_route_allowed``) and raise ``ValueError``.  A body of one
+      or two segments, or one in which the finder sees no block start
+      (stored or fixed blocks only), is decoded serially by the stitch,
+      on the host; ``metrics`` counts such a call as
+      ``large_device_rerouted``.
+    - ``use_device=None`` (the default, as in the JAX module) and
+      ``False``: the all-native parallel engine
       (``dt_inflate_large``): worker threads find boundaries and
       token-decode segments while the calling thread stitches behind
       them.  ``seg_bytes`` and ``n_threads`` are its segment size and
@@ -170,7 +167,7 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     empty = 0 if caller_out else b""
     start = 0
     dev = None
-    if use_device is not False:
+    if use_device:
         dev = session._pick_decoder(device)
     native.load()
     if zf:
@@ -202,17 +199,12 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     st = stats_out if stats_out is not None else {}
     seg = SEGMENT_BYTES
     n_seg = max(1, body.size // seg)
-    fits = device_route_allowed(body.size)
-    if use_device and not fits:
+    if use_device and not device_route_allowed(body.size):
         raise ValueError(
             f"inflate_large(use_device=True): a body of {body.size} bytes is "
             f"past the device decoder's int32 bit cursors (under "
             f"{((1 << 31) - (1 << 22)) // 8} bytes); pass use_device=None "
             f"or False for the host-parallel engine")
-    if use_device is None:
-        use_device = fits and n_seg > 2
-        if not fits:
-            metrics.inc("large_device_rerouted")
 
     metrics.inc("large_streams")
     metrics.inc("large_bytes_in", len(data))

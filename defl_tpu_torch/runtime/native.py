@@ -7,8 +7,10 @@ failed build raises with g++'s own message: the port has no resolver or
 host engine to carry on with instead.
 
 Every entry point of the library is bound, under the names of the JAX
-package's bindings.  Out buffers are checked and refused with
-``ValueError``.  ``native_deflate_fields`` hands each call a pinned
+package's bindings; ``get_lib`` and ``available`` are that package's
+names for the loader, and neither returns or answers around a failed
+build.  Out buffers are checked and refused with ``ValueError``.
+``native_deflate_fields`` hands each call a pinned
 buffer of its own (PyTorch's caching host allocator keeps the pages for
 the next call), so concurrent encodes never share field storage.
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 import time
@@ -140,6 +143,29 @@ def load():
         lib.dt_large_free.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
+
+
+def get_lib():
+    """The loaded library (the JAX package's name for ``load``).  Unlike
+    that package's, it never returns None: a build that fails raises with
+    g++'s message, and so does a missing g++ or source (``available``
+    asks first)."""
+    return load()
+
+
+def available() -> bool:
+    """Whether the library is there to load: False only when its source
+    or g++ is absent, so that nothing can build it.  A source that does
+    not compile is no answer of False: the build runs and raises, as
+    ``load`` does (a swallowed build failure would hide a broken engine
+    behind the callers' slower paths)."""
+    if _lib is None:
+        if not os.path.exists(os.path.join(_CSRC, SOURCE)):
+            return False
+        if not os.path.exists(lib_path()) and shutil.which("g++") is None:
+            return False
+    load()
+    return True
 
 
 def _default_threads() -> int:

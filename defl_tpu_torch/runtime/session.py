@@ -286,8 +286,9 @@ def batch_inflate(streams, flags=FLAG_ZLIB, backend="auto", dictionary=None,
     Streams over ``MAX_STREAM_BYTES`` (the per-lane packing limit) take
     the speculative block-parallel path, ``runtime/large.py``, one by one:
     on ``device`` under ``backend="device"`` (a body past the device
-    decoder's cursors then raises ``ValueError``), by ``inflate_large``'s
-    own choice under ``"auto"``; the rest batch as follows.  ``auto`` decides
+    decoder's cursors then raises ``ValueError``), on the host-parallel
+    engine under ``"auto"`` (``inflate_large``'s default); the rest batch
+    as follows.  ``auto`` decides
     by the batch alone, as the JAX session does: 8 or more streams go to
     ``device``.  With ``device="cuda"`` and no card that raises; a caller
     who wants the host says ``backend="host"`` or ``device="cpu"``.

@@ -309,6 +309,43 @@ def test_failed_native_build_raises(tmp_path, monkeypatch):
     assert not list((tmp_path / "build").glob("*.so"))
 
 
+def test_native_public_names_cover_the_jax_package():
+    """Every public function of ``defl_tpu.runtime.native`` has its
+    namesake in the port's, ``get_lib`` and ``available`` included."""
+    def public(mod):
+        return {n for n, v in vars(mod).items()
+                if not n.startswith("_") and callable(v)
+                and getattr(v, "__module__", None) == mod.__name__}
+
+    missing = public(jnative) - public(tnative)
+    assert not missing, sorted(missing)
+    assert {"get_lib", "available"} <= public(tnative)
+
+
+def test_native_available_and_get_lib(tmp_path, monkeypatch):
+    """``available`` is True once the library loads, and False only when
+    nothing can build it (no source, or no g++ and no library built);
+    ``get_lib`` is the loaded library.  A source that does not compile
+    raises from both, as ``load`` does."""
+    assert tnative.available() is True
+    assert tnative.get_lib() is tnative.load()
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_CSRC", str(tmp_path))
+    monkeypatch.setattr(tnative, "_BUILD", str(tmp_path / "build"))
+    assert tnative.available() is False                  # no source
+    (tmp_path / tnative.SOURCE).write_text("this is not C++\n")
+    monkeypatch.setattr(tnative.shutil, "which", lambda name: None)
+    assert tnative.available() is False                  # no g++
+    monkeypatch.undo()
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_CSRC", str(tmp_path))
+    monkeypatch.setattr(tnative, "_BUILD", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match=r"g\+\+ failed"):
+        tnative.available()
+    with pytest.raises(RuntimeError, match=r"g\+\+ failed"):
+        tnative.get_lib()
+
+
 # ---- the port imports neither jax nor the JAX package -----------------------
 
 _IMPORT_ALL = r"""
@@ -318,6 +355,11 @@ names = ["defl_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
     defl_tpu_torch.__path__, "defl_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
+# the port's examples, loaded as modules (their main() is not run)
+import importlib.util
+for ex in ("png_idat_torch", "batch_pipeline_torch"):
+    spec = importlib.util.spec_from_file_location(ex, f"examples/{ex}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 foreign = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "defl_tpu"))
 assert not foreign, foreign
@@ -332,7 +374,8 @@ print(len(names), "clean")
 
 def test_no_module_of_the_port_imports_jax_or_the_jax_package():
     """Subprocess (tests/conftest.py itself imports jax): import every
-    module of defl_tpu_torch, then look at sys.modules."""
+    module of defl_tpu_torch and load the port's two examples, then look
+    at sys.modules."""
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
@@ -341,11 +384,15 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 
 
 def test_port_sources_name_no_import_of_the_jax_package():
-    """The same, read from the sources: no import statement of the port
-    or of chip_smoke.py names defl_tpu or jax."""
+    """The same, read from the sources: no import statement of the port,
+    of chip_smoke.py, of the port's examples or of its soak names defl_tpu
+    or jax."""
     import ast
 
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, p) for p in (
+        "chip_smoke.py", "examples/png_idat_torch.py",
+        "examples/batch_pipeline_torch.py", "tests/soak_torch_differential.py",
+        "tests/test_torch_cuda_fuzz.py")]
     for root, _, names in os.walk(os.path.join(REPO, "defl_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 25

@@ -284,17 +284,43 @@ def test_device_route_matches_jax(shared_stream, small_segments):
 
 def test_device_route_is_the_default_when_the_body_allows(shared_stream,
                                                           small_segments):
+    """The card's route is the default of the caller who names it
+    (``use_device=True``, as ``batch_inflate(backend="device")`` passes):
+    the body is split and decoded there.  With no choice made
+    (``use_device=None``) the host-parallel engine decodes it, as in the
+    JAX module."""
     raw, comp = shared_stream
     st = {}
     r, out = tlarge.inflate_large(comp, stats_out=st, device="cpu",
+                                  use_device=True,
                                   flags=FLAG_ZLIB | FLAG_VERIFY_ADLER32)
     assert r is Result.OK and out == raw and st["route"] == "device"
-    # one or two segments: the host-parallel engine
+    st = {}
+    r, out = tlarge.inflate_large(comp, stats_out=st, device="cpu",
+                                  flags=FLAG_ZLIB | FLAG_VERIFY_ADLER32)
+    assert r is Result.OK and out == raw and st["route"] == "host_parallel"
+    # a cut stream, either way
     st = {}
     r, out = tlarge.inflate_large(comp[:2 * SEG + 100], stats_out=st,
                                   device="cpu")
     assert st["route"] == "host_parallel"
     assert raw.startswith(out) and r is Result.UNFINISHED
+
+
+@pytest.mark.parametrize("flags", [FLAG_ZLIB, FLAG_ZLIB | FLAG_VERIFY_ADLER32])
+def test_default_route_is_the_host_parallel_engine_as_in_the_reference(
+        shared_stream, small_segments, flags):
+    """``use_device=None`` means the JAX module's default, the
+    host-parallel engine (``defl_tpu/runtime/large.py`` reads an unset
+    ``DEFL_LARGE_DEVICE``): no card is needed for it, and the route says
+    so."""
+    raw, comp = shared_stream
+    st = {}
+    r, out = _same(jlarge.inflate_large(comp, flags),
+                   tlarge.inflate_large(comp, flags, stats_out=st))
+    assert r is Result.OK and out == raw
+    assert st["route"] == "host_parallel" and "parallel_s" in st
+    assert "lanes" not in st
 
 
 def test_too_few_segments_leave_the_serial_stitch(shared_stream):
@@ -335,9 +361,10 @@ def test_head_lane_distance_too_far_is_err_on_both_engines(small_segments):
 def test_oversize_body_reroutes_to_the_host_engine(shared_stream,
                                                    small_segments,
                                                    monkeypatch):
-    """A body past the int32 bit cursors: the host-parallel engine when the
-    choice was the module's (and counted), an error when the caller named
-    the device.  (The JAX module reroutes quietly in both cases.)"""
+    """A body past the int32 bit cursors: the host-parallel engine by
+    default (no reroute: that is the default's route for any body), an
+    error when the caller named the device.  (The JAX module reroutes
+    ``use_device=True`` quietly.)"""
     raw, comp = shared_stream
     monkeypatch.setattr(tlarge, "device_route_allowed", lambda n: False)
     before = metrics.snapshot().get("large_device_rerouted", 0)
@@ -346,7 +373,7 @@ def test_oversize_body_reroutes_to_the_host_engine(shared_stream,
     assert r is Result.OK and out == raw
     assert st["route"] == "host_parallel" and "parallel_s" in st
     assert "lanes" not in st
-    assert metrics.snapshot()["large_device_rerouted"] == before + 1
+    assert metrics.snapshot().get("large_device_rerouted", 0) == before
     with pytest.raises(ValueError, match="bit cursors"):
         tlarge.inflate_large(comp, use_device=True, device="cpu")
     monkeypatch.setattr(tsess, "MAX_STREAM_BYTES", 20_000)
@@ -355,7 +382,7 @@ def test_oversize_body_reroutes_to_the_host_engine(shared_stream,
     # the host engine by name is no reroute
     r, out = tlarge.inflate_large(comp, use_device=False)
     assert r is Result.OK and out == raw
-    assert metrics.snapshot()["large_device_rerouted"] == before + 1
+    assert metrics.snapshot().get("large_device_rerouted", 0) == before
 
 
 def test_cuda_without_a_card_raises_unless_the_host_engine_is_named(
@@ -363,11 +390,12 @@ def test_cuda_without_a_card_raises_unless_the_host_engine_is_named(
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     raw, comp = shared_stream
-    for use_device in (None, True):
-        with pytest.raises(RuntimeError, match="CUDA"):
-            tlarge.inflate_large(comp, use_device=use_device)
-    r, out = tlarge.inflate_large(comp, use_device=False)
-    assert r is Result.OK and out == raw
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlarge.inflate_large(comp, use_device=True)
+    # the default (None) is the host-parallel engine, as False names it
+    for use_device in (None, False):
+        r, out = tlarge.inflate_large(comp, use_device=use_device)
+        assert r is Result.OK and out == raw
     with pytest.raises(RuntimeError, match="CUDA"):
         tsess.batch_inflate([comp], backend="device")
 
@@ -404,8 +432,10 @@ def test_batch_inflate_routes_big_streams(backend, shared_stream,
                                      dst_capacities=dst, device="cpu")
         assert [int(r) for r in tr] == [int(r) for r in jr] == [0, 0, 0]
         assert to == jo == [small_raw, raw, small_raw]
-        # the big stream went through the split decode on the device
-        assert seen == [(True if backend == "device" else None, "device")]
+        # the big stream went through the split decode on the device when
+        # the caller named it, else through the host-parallel engine
+        assert seen == [(True, "device") if backend == "device"
+                        else (None, "host_parallel")]
     # with a dictionary, or on the host backend, nothing is rerouted
     seen.clear()
     tr, to = tsess.batch_inflate(streams, backend="host")

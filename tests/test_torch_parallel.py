@@ -285,6 +285,49 @@ def test_local_stream_slice_without_a_group():
     assert multihost.local_stream_slice(0) == slice(0, 0)
 
 
+@pytest.mark.parametrize("env, process_id, card", [
+    ({"RANK": "1"}, None, 1),                   # env:// set by hand
+    ({"LOCAL_RANK": "0", "RANK": "3"}, None, 0),    # torchrun, host 2
+    ({}, 3, 1),                                 # rank passed, 2 cards
+])
+def test_initialize_binds_the_card_the_mesh_gives_the_rank(monkeypatch, env,
+                                                           process_id, card):
+    """One rule says which card a rank owns (``multihost.local_card``):
+    ``initialize`` binds the NCCL group and the current device to it, and
+    the mesh of that rank decodes and runs its collectives there.  With
+    ``RANK`` set by hand and no ``LOCAL_RANK`` the two used to differ
+    (cuda:0 against cuda:1 of 2).  torch.cuda and the group are faked on
+    the CPU: 2 cards, a world of 2."""
+    calls = {}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: calls.setdefault("set_device",
+                                                   torch.device(d)))
+
+    def init_process_group(backend, init_method=None, **kw):
+        calls.update(backend=backend, init_method=init_method, **kw)
+
+    monkeypatch.setattr(dist, "init_process_group", init_process_group)
+    for key in ("LOCAL_RANK", "RANK"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in {"WORLD_SIZE": "2", **env}.items():
+        monkeypatch.setenv(key, value)
+    multihost.initialize(process_id=process_id)
+    assert calls["backend"] == "nccl" and calls["init_method"] == "env://"
+    rank = process_id if process_id is not None else int(env["RANK"])
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: rank)
+    monkeypatch.setattr(dist, "get_backend", lambda group=None: "nccl")
+    mesh = tmesh.make_host_chip_mesh()
+    want = torch.device("cuda", card)
+    assert mesh.devices == (want,)
+    assert calls["device_id"] == calls["set_device"] == want
+    assert mesh.collective_device() == want
+    assert multihost.local_card(rank) == card
+
+
 def test_gloo_group_of_one_in_process(tmp_path):
     """The process-group path in this process: a gloo group of one rank,
     a mesh made under it, the dictionary broadcast and the sums reduced
@@ -398,3 +441,32 @@ def test_scaling_measurement_runs():
     assert o["dist_overhead_pct"] < 60.0, o
     assert len(o["codec1_rounds_s"]) == len(o["raw_rounds_s"]) == 2
 
+
+
+def test_scaling_measurement_interleaves_its_rounds(monkeypatch):
+    """``measure`` times shard1 and shardN in turns, one of each a round
+    after one warm-up of each, and returns the rounds beside the best of
+    each (a fake codec records the order of its calls)."""
+    from defl_tpu_torch import bench_scaling
+    from defl_tpu_torch.parallel import shard
+
+    pays = [b"one", b"two"]
+    order = []
+
+    class Recording:
+        def __init__(self, mesh, **kw):
+            self.shards = len(mesh.devices)
+
+        def inflate(self, streams, dst_capacities=None):
+            order.append(self.shards)
+            return [Result.OK] * len(streams), list(pays), {}
+
+    monkeypatch.setattr(bench_scaling, "_batch",
+                        lambda n, block: (pays, [b"x", b"y"]))
+    monkeypatch.setattr(shard, "DistributedCodec", Recording)
+    m = bench_scaling.measure(reps=3, devices=["cpu"] * 2)
+    assert order == [1, 2] * 4
+    assert len(m["shard1_rounds_s"]) == len(m["shard2_rounds_s"]) == 3
+    assert m["shard1_s"] == min(m["shard1_rounds_s"])
+    assert m["shard2_s"] == min(m["shard2_rounds_s"])
+    assert m["shard2_speedup"] == m["shard1_s"] / m["shard2_s"]
