@@ -1,7 +1,7 @@
 """Smoke run of defl_tpu_torch on one CUDA card: the batched inflate main
 path, the device-resident inflate, the streaming session, the split decode
-of one huge stream, the hybrid encode, the sharded decode, and malformed
-input among good streams.
+of one huge stream, the hybrid encode, the sharded decode, malformed
+input among good streams, and the bench.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -91,7 +91,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      under compute-sanitizer memcheck (any report fails the run), then
      racecheck over 64 lanes if it ends within its budget; where the tool
      is absent, or refuses the card ("Device not supported"), the run says
-     so and records "sanitizer": null.
+     so and records "sanitizer": null;
+ 12. the bench whole: ``python -m defl_tpu_torch.bench`` at its defaults
+     (8192 x 64 KiB on the card: decode, resolve, the pipeline with the
+     fetch stubbed and real, the 64 MiB stream, the encode, the sharding
+     overhead) in a process of its own, killed past BENCH_BUDGET_S; its
+     line is printed and must carry no error, every ``*_ok`` true, the
+     card's name, a value above 0 and a token fetch of exactly [2c]'s
+     tok_rows x 8192 x 4 B a batch, and the bench's process must have
+     launched the decode kernel (its count, read in that process, rides
+     in the kernels' JSON as ``bench_launches``).
 Each kernel's count of launches is set to 0 just before the path that
 uses it and read just after.  The line before the last holds the card's
 name and power limit, the one before it the kernels' JSON record; the
@@ -163,6 +172,11 @@ PLAIN_K = 128
 MIXED_SEED = 11
 MIXED_ROUNDS = 3
 SANITIZER_RUNS = (("memcheck", 256, 420), ("racecheck", 64, 240))
+# [12]: the bench at its defaults, in a process of its own, and the keys
+# of its line that must be true
+BENCH_BUDGET_S = 600
+BENCH_OK_KEYS = ("pipeline_fetch_ok", "large64_ok", "large64_device_ok",
+                 "encode_ok")
 
 
 def log(*a):
@@ -1148,6 +1162,51 @@ def phase_sanitizer():
     return rec
 
 
+def phase_bench(tok_rows):
+    """12: ``python -m defl_tpu_torch.bench`` at its defaults (8192 x 64 KiB,
+    on the card) in a process of its own, killed past its budget.  Its line
+    must carry no error, every ``*_ok`` true, the card's name, a value above
+    0, a token fetch of exactly ``tok_rows`` (the whole-batch launch's of
+    [2c]) x 8192 x 4 B a batch, the 64 MiB stream on the device route, and
+    the keys of the scaling modes it ran at its own size (``overhead``;
+    ``scaling`` with two cards or more); and the bench must have launched
+    the decode kernel.  Returns (the line, its log lines, decode_stream
+    launches, seconds)."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    rc, out = run_bounded([sys.executable, "-m", "defl_tpu_torch.bench"],
+                          BENCH_BUDGET_S, here)
+    secs = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    if rc is None:
+        raise AssertionError(f"[12] the bench did not end within "
+                             f"{BENCH_BUDGET_S} s; output ends:\n"
+                             f"{out[-3000:]}")
+    line = json.loads(lines[-1]) if lines else {}
+    launched = [json.loads(ln[len("launches: "):]) for ln in lines
+                if ln.startswith("launches: ")]
+    want = tok_rows * N_STREAMS * 4
+    wrong = [k for k in BENCH_OK_KEYS if line.get(k) is not True]
+    n_cards = torch.cuda.device_count()
+    scaling_keys = ["dist_overhead_pct", "codec1_s", "raw_device_inflate_s"]
+    if n_cards > 1:
+        scaling_keys += ["shard1_s", f"shard{n_cards}_s"]
+    missing = [k for k in scaling_keys if k not in line]
+    if rc != 0 or "error" in line or wrong or missing \
+            or line.get("device") != torch.cuda.get_device_name(0) \
+            or not line.get("value", 0) > 0 \
+            or line.get("pipeline_fetch_bytes_per_batch") != want \
+            or line.get("large64_device_route") != "device" \
+            or not launched or launched[-1]["decode_stream"] <= 0:
+        raise AssertionError(f"[12] the bench: exit {rc}, not true: {wrong}, "
+                             f"keys missing: {missing}, fetch bytes a batch "
+                             f"against {want}, launches {launched}; output "
+                             f"ends:\n{out[-4000:]}")
+    return line, lines[:-1], launched[-1]["decode_stream"], secs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -1443,6 +1502,22 @@ def main() -> int:
     san = phase_sanitizer()
     log(f"[11] malformed input took {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 12. the bench, whole, in a process of its own ----
+    del mixed
+    torch.cuda.empty_cache()
+    b_line, b_log, b_launches, b_secs = phase_bench(s_stats["tok_rows"])
+    for ln in b_log:
+        log(f"[12]   {ln}")
+    log(f"[12] {json.dumps(b_line)}")
+    log(f"[12] python -m defl_tpu_torch.bench: no error, "
+        f"{', '.join(BENCH_OK_KEYS)} true, device the card's, the 64 MiB "
+        f"stream on the device route ({b_line['large64_device_lanes_valid']}"
+        f" of {b_line['large64_device_lanes']} lanes valid), "
+        f"dist_overhead_pct {b_line['dist_overhead_pct']} at the bench's "
+        f"size, {b_launches} decode_stream launches, token fetch "
+        f"{b_line['pipeline_fetch_bytes_per_batch']} B a batch; value "
+        f"{b_line['value']} GB/s; wall {b_secs:.1f} s")
+
     # decode_stream: the whole-batch launch of [2c]; plain_ms is the chunk
     # loop's time for plain_lanes of its lanes (the twin's time hardly
     # depends on the lane count).  The chunk kernel of [2b] shares the
@@ -1488,7 +1563,10 @@ def main() -> int:
             "lanes_differ": sum(mal[f"resolve_{r}"]["n_differ"]
                                 for r in ("host", "device")),
             "large": lg},
-        "sanitizer": san}, {
+        "sanitizer": san,
+        # [12]: launches in the bench's own process (its main path: the
+        # decode, the pipelines, the split decode)
+        "bench_launches": b_launches}, {
         "name": "adler32_batch", "route": "cuda",
         "source": "defl_tpu_torch/csrc/adler32_batch.cu",
         "replaces": "defl_tpu/ops/pallas/checksums_pl.py:53",

@@ -240,21 +240,30 @@ def lane_rows(tok, rows):
     return used
 
 
-def profile(args, C):
+def profile(args, C, K=None, trace=None):
     """One decode under torch.profiler: device busy time (union of device
-    activity), wall, idle share and the busiest kernels."""
+    activity), wall, idle share and the busiest kernels.  ``K`` is the
+    decode's chunk length (``decode_tokens``'s default when None);
+    ``trace`` (a file path) also keeps the timeline as a Chrome trace.
+    Tensors on the CPU trace the host alone: no device time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    on_card = args[0].device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    with tprofile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else [])) as prof:
         t0 = time.perf_counter()
-        decode_cu.decode_tokens(*args, T=ib.step_budget(C))
-        torch.cuda.synchronize()
+        decode_cu.decode_tokens(*args, T=ib.step_budget(C), K=K)
+        sync()
         wall = time.perf_counter() - t0
+    if trace:
+        prof.export_chrome_trace(trace)
     spans, per_name = [], {}
-    for e in prof.events():
+    # (the CPU's plain version records ~10^5 ops a chunk and no device
+    # event: nothing to scan)
+    for e in prof.events() if on_card else ():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         a, b = e.time_range.start, e.time_range.end

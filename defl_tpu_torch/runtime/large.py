@@ -159,8 +159,9 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     stats_out (optional dict) receives ``route`` and per-stage seconds:
     ``parallel_s`` (host engine) or ``find_s``, ``upload_s`` (what was
     left of the body's upload after the find), ``decode_s``, ``fetch_s``,
-    ``stitch_s`` with ``lanes``, ``lanes_valid`` and ``tok_rows`` (device
-    engine)."""
+    ``stitch_s`` with ``segments`` (of ``SEGMENT_BYTES``; under 3 the
+    stream is too short to split and takes the serial stitch), ``lanes``,
+    ``lanes_valid`` and ``tok_rows`` (device engine)."""
     data = bytes(data)
     zf = bool(flags & FLAG_ZLIB)
     caller_out = out is not None
@@ -213,6 +214,7 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
         return _host_parallel(body, zf, flags, cap_total, grow, seg_bytes,
                               n_threads, st, out)
 
+    st["segments"] = n_seg
     body_dev = side = None
     if n_seg > 2:
         # the upload of the shared body runs beside the block find below:

@@ -25,6 +25,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from defl_tpu_torch import metrics
 from defl_tpu_torch.errors import FLAG_ZLIB, Result
 from defl_tpu_torch.ops import inflate_batch as ib
 from defl_tpu_torch.ops.cuda import decode_cu
@@ -120,12 +121,14 @@ def pipeline_inflate(stream_batches, dst_capacity: int, flags=FLAG_ZLIB,
             out=None if out_buf is None else out_buf[: toks_nt.shape[0]])
         n = len(stream_batches[i])
         # step-budget-exhausted lanes (status 127) retry on the host
-        # engine, on their own worker so that the pipeline does not stall
-        # behind them; with a shared output buffer the batch's rows are
-        # copied first (the next resolve reuses the buffer at once)
+        # engine (counted as ``pipeline_host_retries``), on their own
+        # worker so that the pipeline does not stall behind them; with a
+        # shared output buffer the batch's rows are copied first (the next
+        # resolve reuses the buffer at once)
         rerun = [k for k in range(n) if int(status[k]) == ib.STATUS_RUNNING]
         if not rerun:
             return finish_one(i, n, status, dst_pos, out)
+        metrics.inc("pipeline_host_retries", len(rerun))
         out_r = np.array(out[:n], copy=True) if reuse_out else out
         status = np.array(status, copy=True)
         dst_pos = np.array(dst_pos, copy=True)

@@ -843,3 +843,32 @@ def test_dryrun_multichip_on_the_card():
     assert out["backend"] == "nccl" and out["ok_lanes"] == 2
     assert out["ranks"][0]["launches"] == 1
     assert out["ranks"][0]["reduced_on"] == "cuda:0"
+
+
+# ---- the bench -------------------------------------------------------------
+
+def test_bench_on_the_card(monkeypatch, capsys):
+    """defl_tpu_torch.bench on the card at 64 x 64 KiB, without the
+    scaling subprocesses: one line, no error, every ``*_ok`` true, the
+    card's name, the decode kernel launched."""
+    import json
+
+    from defl_tpu_torch import bench
+
+    for k, v in {"DEFL_BENCH_STREAMS": "64", "DEFL_BENCH_BLOCK": "65536",
+                 "DEFL_BENCH_SCALING": "0"}.items():
+        monkeypatch.setenv(k, v)
+    monkeypatch.delenv("DEFL_PROFILE_DIR", raising=False)
+    assert bench.main([]) == 0
+    out = capsys.readouterr()
+    lines = out.out.strip().splitlines()
+    assert len(lines) == 1, lines
+    line = json.loads(lines[0])
+    assert "error" not in line, line
+    for key in ("pipeline_fetch_ok", "large64_ok", "large64_device_ok",
+                "encode_ok"):
+        assert line[key] is True, key
+    assert line["large64_device_route"] == "device"
+    assert line["device"] == torch.cuda.get_device_name(0)
+    assert line["value"] == line["pipeline_fetch_wall_GBps"] > 0
+    assert decode_cu.launches > 0
