@@ -1,15 +1,16 @@
 """Smoke run of defl_tpu_torch on one CUDA card: the batched inflate main
 path, the device-resident inflate, the streaming session, the split decode
 of one huge stream, the hybrid encode, the sharded decode, malformed
-input among good streams, and the bench.
+input among good streams, the bench, and the kernels' checked build.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit, torch/CUDA versions, and
      the builds from csrc/, started together: nvcc for the kernels
-     (decode_stream.cu, adler32_batch.cu), g++ for the host engine
-     (defl_host.cc);
+     (decode_stream.cu, adler32_batch.cu), nvcc for their checked build
+     ([13]), g++ for the host engine (defl_host.cc); both nvcc builds'
+     ptxas lines;
   2. the decode kernels against their plain PyTorch versions, exactly, on
      the card: (a) full decodes of a small matrix (dynamic, fixed, stored
      and raw blocks, RLE, dist=2 chains, incompressible data, one byte,
@@ -100,11 +101,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      card's name, a value above 0 and a token fetch of exactly [2c]'s
      tok_rows x 8192 x 4 B a batch, and the bench's process must have
      launched the decode kernel (its count, read in that process, rides
-     in the kernels' JSON as ``bench_launches``).
+     in the kernels' JSON as ``bench_launches``) and no checked build;
+ 13. the kernels' checked build (csrc/checked.cuh, ``-DDEFL_CHECKED``:
+     every access to device and shared memory checked against its
+     extent, and the stream kernel's shared words and lookup entries also
+     against a shadow of what the launch wrote; compute-sanitizer refuses
+     the card, [11c]) over the port's malformed and edge inputs: the bench
+     batch clean and with every 8th lane malformed, tests/test_fuzz.py's
+     cases for seeds 1-3 and 7, the cut streams of faults C4 and C5, [2a]'s
+     matrix with its EFULL resume and its dictionary stream, the 64 MiB
+     stream's split-decode launch clean and with [11b]'s flips and cut
+     tail, [2b]'s chunk, and adler32 at [8192, 65536] and at lengths -1,
+     0, C, C + 1 over rows off a 16-byte boundary.  Each must raise no
+     fault and equal the unchecked launch bit for bit (tokens, carry,
+     totals but the clock's); then one injected out-of-extent access per
+     site, in the middle slot of a block, must raise with its own site and
+     lane (7 sites of the stream kernel in batch and in shared-input mode,
+     3 of the chunk kernel, adler32's one).  The checked launches' times
+     beside the unchecked ones', in turns, and both builds' ptxas lines.
 Each kernel's count of launches is set to 0 just before the path that
-uses it and read just after.  The line before the last holds the card's
-name and power limit, the one before it the kernels' JSON record; the
-last line is the result JSON.  Without CUDA it fails at once and prints
+uses it and read just after; the checked build's counts must still be 0
+after [3], [4] and [3]-[11], and in [12]'s own process (the main path
+never launches it).  The line
+before the last holds the card's name and power limit, the one before it
+the kernels' JSON record; the last line is the result JSON.  Without CUDA it fails at once and prints
 no result.  It imports torch, numpy and defl_tpu_torch only.
 """
 
@@ -177,6 +197,19 @@ SANITIZER_RUNS = (("memcheck", 256, 420), ("racecheck", 64, 240))
 BENCH_BUDGET_S = 600
 BENCH_OK_KEYS = ("pipeline_fetch_ok", "large64_ok", "large64_device_ok",
                  "encode_ok")
+# [13]: the checked build (csrc/checked.cuh) on the card: the seeds of
+# tests/test_fuzz.py's cases, the cut streams of faults C4 and C5
+# (tests/test_torch_fuzz.py BAD_CODE_CUT_SHORT), the rounds of the whole
+# batch timed in turns, the lanes of the bench batch the batch-mode
+# injections run on, and the sites each kernel's injections take
+CHECKED_FUZZ_SEEDS = (1, 2, 3, 7)
+BAD_CODE_CUT_SHORT = ("4b043e", "4b047e", "4b043e00", "0560240980")
+CHECKED_ROUNDS = 2
+INJECT_LANES = 256
+STREAM_SITES = ("shared", "lut", "input", "token", "carry", "meta", "uninit")
+CHUNK_SITES = ("input", "token", "carry")
+KERNEL_NAMES = ("decode_stream_kernel", "decode_chunk_kernel",
+                "adler32_batch_kernel")
 
 
 def log(*a):
@@ -225,8 +258,10 @@ def held_equal(decode_cu, a, b, what) -> int:
     return err
 
 
-def phase_small_matrix(decode_cu, ib, pack, native):
-    """(a): full decodes through kernel and twin, bytes checked."""
+def small_matrix(pack):
+    """(a)'s inputs: the packed streams (lane 2's capacity forces EFULL),
+    each lane's payload (None: must fail), and a preset-dictionary stream
+    with its dictionary and payload."""
     rng = np.random.default_rng(7)
     pays = [b"hello hello hello world" * 40, bytes(range(256)) * 16,
             b"\0" * 5000, rng.integers(0, 256, 700, dtype=np.uint8).tobytes(),
@@ -241,8 +276,19 @@ def phase_small_matrix(decode_cu, ib, pack, native):
     zflag = [1] * 7 + [0, 1, 1, 1]
     want = pays + [None, None]
     caps = [8192] * len(streams)
-    caps[2] = 1000            # EFULL, resumed below with a grown cap
+    caps[2] = 1000            # EFULL, resumed with a grown cap
     p = pack.pack_streams(streams, zflag, caps)
+    d = b"a shared preset dictionary: hello world, the quick brown fox " * 4
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_DEFAULT_STRATEGY,
+                          zdict=d)
+    dp = b"hello world, the quick brown fox jumps " * 30
+    pd = pack.pack_streams([co.compress(dp) + co.flush()], 1, 4096)
+    return p, want, (pd, d, dp)
+
+
+def phase_small_matrix(decode_cu, ib, pack, native):
+    """(a): full decodes through kernel and twin, bytes checked."""
+    p, want, (pd, d, dp) = small_matrix(pack)
     args = (p.words, p.nbits, p.zflag, p.dst_cap)
     err = 0
     runs = {}
@@ -253,8 +299,7 @@ def phase_small_matrix(decode_cu, ib, pack, native):
         t1, c1 = decode_cu.decode_tokens(*args, T=4096, K=64, device="cuda",
                                          **kw)
         torch.cuda.synchronize()
-        cap = torch.full((len(streams),), 8192, dtype=torch.int32,
-                         device="cuda")
+        cap = torch.full((p.n,), 8192, dtype=torch.int32, device="cuda")
         t2, c2 = decode_cu.decode_tokens(
             p.words, p.nbits, p.zflag, cap, T=4096, K=64, device="cuda",
             carry=ib.revive_carry(c1, new_cap=cap), **kw)
@@ -288,12 +333,7 @@ def phase_small_matrix(decode_cu, ib, pack, native):
     if status[9] != -1 or status[10] != 2:
         raise AssertionError(f"BTYPE=3/truncation lanes: {status[9:]}")
 
-    # a preset-dictionary stream
-    d = b"a shared preset dictionary: hello world, the quick brown fox " * 4
-    co = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_DEFAULT_STRATEGY,
-                          zdict=d)
-    dp = b"hello world, the quick brown fox jumps " * 30
-    pd = pack.pack_streams([co.compress(dp) + co.flush()], 1, 4096)
+    # the preset-dictionary stream
     kw = dict(T=4096, K=64, device="cuda", has_dict=True,
               dict_len=pack.pack_dictionary(d)[1])
     dargs = (pd.words, pd.nbits, pd.zflag, pd.dst_cap)
@@ -312,8 +352,10 @@ def phase_small_matrix(decode_cu, ib, pack, native):
     return err
 
 
-def phase_big_chunk(decode_cu, ib, packed):
-    """(b): one N=8192, K=512 chunk from a mid-decode carry."""
+def big_chunk(decode_cu, ib, packed):
+    """(b)'s inputs: the chunk kernel's rows of the carry two chunks into
+    the batch (every lane state of a dynamic block occurs), and the padded
+    words on the card."""
     dev = torch.device("cuda")
     args = (packed.words, packed.nbits, packed.zflag, packed.dst_cap)
     # two chunks in, lanes sit in every state of a dynamic block
@@ -335,6 +377,12 @@ def phase_big_chunk(decode_cu, ib, packed):
     w = packed.words.shape[1] + decode_cu.PAD_WORDS
     words = torch.nn.functional.pad(i32(packed.words.view(np.int32)),
                                     (0, decode_cu.PAD_WORDS + (-w) % 4))
+    return inputs, words
+
+
+def phase_big_chunk(decode_cu, ib, packed):
+    """(b): one N=8192, K=512 chunk from a mid-decode carry."""
+    inputs, words = big_chunk(decode_cu, ib, packed)
     e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
     def run(fn):
@@ -1170,8 +1218,9 @@ def phase_bench(tok_rows):
     [2c]) x 8192 x 4 B a batch, the 64 MiB stream on the device route, and
     the keys of the scaling modes it ran at its own size (``overhead``;
     ``scaling`` with two cards or more); and the bench must have launched
-    the decode kernel.  Returns (the line, its log lines, decode_stream
-    launches, seconds)."""
+    the decode kernel and never the checked build (the counts its process
+    logs).  Returns (the line, its log lines, decode_stream launches,
+    seconds)."""
     import os
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1199,12 +1248,356 @@ def phase_bench(tok_rows):
             or not line.get("value", 0) > 0 \
             or line.get("pipeline_fetch_bytes_per_batch") != want \
             or line.get("large64_device_route") != "device" \
-            or not launched or launched[-1]["decode_stream"] <= 0:
+            or not launched or launched[-1]["decode_stream"] <= 0 \
+            or any(launched[-1]["checked"].values()):
         raise AssertionError(f"[12] the bench: exit {rc}, not true: {wrong}, "
                              f"keys missing: {missing}, fetch bytes a batch "
                              f"against {want}, launches {launched}; output "
                              f"ends:\n{out[-4000:]}")
     return line, lines[:-1], launched[-1]["decode_stream"], secs
+
+
+def ptxas_kernels(log: str, what: str) -> dict:
+    """Each kernel's registers, spill stores and loads, stack frame and
+    static shared memory, from the ``nvcc -Xptxas -v`` report of the build
+    ``what``; fails unless the report has every kernel of
+    ``KERNEL_NAMES``."""
+    import re
+
+    out, entry, props = {}, None, None
+    pick = lambda name: next((k for k in KERNEL_NAMES if k in name), None)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = pick(m.group(1))
+            continue
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            props = pick(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and props:
+            out.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            props = None
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            out.setdefault(entry, {}).update(
+                registers=int(m.group(1)), smem=int(sm.group(1)) if sm else 0)
+            entry = None
+    missing = [k for k in KERNEL_NAMES if "registers" not in out.get(k, {})]
+    if missing:
+        raise AssertionError(f"the {what} build's ptxas report ({len(log)} "
+                             f"chars) has no line for {missing}")
+    return out
+
+
+class timed_entry:
+    """While active, every call of the library entry point ``name`` of
+    ``lib`` is bracketed by CUDA events on the current stream: ``ms`` lists
+    the launches' device times (read after a sync)."""
+
+    def __init__(self, lib, name):
+        self.lib, self.name, self.events = lib, name, []
+
+    def __enter__(self):
+        self.fn = getattr(self.lib, self.name)
+
+        def call(*a):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            rc = self.fn(*a)
+            e1.record()
+            self.events.append((e0, e1))
+            return rc
+
+        setattr(self.lib, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.lib, self.name, self.fn)
+
+    @property
+    def ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def held_identical(decode_cu, plain, checked, what) -> int:
+    """A checked decode against the unchecked one, call by call, bit for
+    bit (``decode_cu.identical_decodes``): the token rows, every tensor of
+    the carry (state rows, lens, count/first/offs/maxlen/syms) and the
+    totals but the clock's."""
+    if len(plain) != len(checked):
+        raise AssertionError(f"{what}: {len(plain)} unchecked calls, "
+                             f"{len(checked)} checked")
+    for i, (a, b) in enumerate(zip(plain, checked)):
+        differ = decode_cu.identical_decodes(a, b)
+        if differ:
+            raise AssertionError(f"{what}: call {i}'s checked launch differs "
+                                 f"from the unchecked one in {differ}")
+    return 0
+
+
+def checked_runs(decode_cu, ib, args, kw, revive=None):
+    """``decode_tokens`` over the same calls unchecked and checked: each a
+    list of (tokens, carry), one per call, until no lane is RUNNING; with
+    ``revive`` (a capacity tensor), EFULL lanes are then revived once with
+    it and run on."""
+    out = []
+    for checked in (False, True):
+        words, nbits, zflag, cap = args
+        calls, carry, rev = [], None, revive
+        for _ in range(12):
+            tok, carry = decode_cu.decode_tokens(
+                words, nbits, zflag, cap, carry=carry, checked=checked, **kw)
+            calls.append((tok, carry))
+            if not (carry["status"] == ib.STATUS_RUNNING).any():
+                if rev is None:
+                    break
+                cap, carry, rev = rev, ib.revive_carry(carry, new_cap=rev), None
+        else:
+            raise AssertionError("[13]: lanes still RUNNING after 12 calls")
+        out.append(calls)
+    return out
+
+
+def injected(fn, kernel, site, lane, block, slot) -> int:
+    """``fn`` makes a checked launch with one access injected at ``site``
+    in ``lane``: it must raise with that kernel, site, lane, block and
+    slot.  Returns 1."""
+    from defl_tpu_torch.ops.cuda import build
+
+    try:
+        fn()
+    except build.KernelFault as e:
+        got = (e.kernel, e.site, e.lane, e.block, e.slot)
+        if got != (kernel, site, lane, block, slot):
+            raise AssertionError(f"[13] the access injected at {site!r} in "
+                                 f"lane {lane} (block {block}, slot {slot}) "
+                                 f"of {kernel} came back as {e}")
+        return 1
+    raise AssertionError(f"[13] {kernel}: the access injected at {site!r} "
+                         f"in lane {lane} was not caught")
+
+
+def phase_checked(dt, decode_cu, checksums_cu, ib, pack, malformed, streams,
+                  payloads, mixed, big64, flags):
+    """13: the kernels' checked build over every malformed and edge input
+    of the port (module doc).  Returns the "checked" record of each kernel
+    on the kernels' line."""
+    from defl_tpu_torch import corpus
+    from defl_tpu_torch.ops.cuda import build
+
+    dev = torch.device("cuda")
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    lanes = decode_cu.STREAM_THREADS // 32 * decode_cu.STREAM_LANES_PER_WARP
+    mid = lanes // 2
+    decode_cu.checked_launches = decode_cu.checked_chunk_launches = 0
+    checksums_cu.checked_launches = 0
+    build.faults.update(dict.fromkeys(build.faults, 0))
+    libs = (build.load(), build.load(checked=True))
+    T = ib.step_budget(BLOCK)
+    inputs = {"batch": 0, "shared_input": 0, "chunk": 0, "adler32": 0}
+
+    # 1. the bench batch, clean (timed in turns with the unchecked launch)
+    # and with every 8th lane malformed
+    times = {}
+    for name, batch in (("clean", streams), ("mixed", mixed)):
+        p = pack.pack_streams(batch, 1, BLOCK)
+        args = (up(p.words.view(np.int32)), up(p.nbits), up(p.zflag),
+                up(p.dst_cap))
+        del p
+        turns = (False, True, True, False) * (
+            CHECKED_ROUNDS if name == "clean" else 1)
+        # the first launch of each build warms up (the module's first load)
+        runs = {c: decode_cu.decode_tokens(*args, T=T, checked=c)
+                for c in (False, True)}
+        timers = [timed_entry(lib, "decode_stream_launch") for lib in libs]
+        with timers[0], timers[1]:
+            for checked in turns:
+                runs[checked] = None        # one token buffer a build
+                runs[checked] = decode_cu.decode_tokens(*args, T=T,
+                                                        checked=checked)
+        times[name] = [t.ms for t in timers]
+        held_identical(decode_cu, [runs[False]], [runs[True]],
+                       f"[13] {name} batch")
+        if (runs[True][1]["status"] == ib.STATUS_RUNNING).any():
+            raise AssertionError(f"[13] {name} batch: lanes still RUNNING")
+        inputs["batch"] += 1
+        del runs, args
+        torch.cuda.empty_cache()
+
+    # 2. the fuzz cases, the C4/C5 cut streams, [2a]'s matrix with its
+    # EFULL resume, and its dictionary stream
+    base = corpus.fuzz_payloads(payloads)
+    small = [(f"fuzz seed {seed}", pack.pack_streams(
+        [d for _, d in corpus.fuzz_cases(seed, 60, base)], 1, 1024),
+        {"T": ib.step_budget(1024)}, None) for seed in CHECKED_FUZZ_SEEDS]
+    small.append(("C4/C5 cut streams", pack.pack_streams(
+        [bytes.fromhex(h) for h in BAD_CODE_CUT_SHORT], 0, 1024),
+        {"T": ib.step_budget(1024)}, None))
+    pm, _, (pd, d, _) = small_matrix(pack)
+    small.append(("[2a] matrix, EFULL and its resume", pm,
+                  {"T": 4096, "K": 64},
+                  torch.full((pm.n,), 8192, dtype=torch.int32, device=dev)))
+    small.append(("[2a] dictionary stream", pd,
+                  {"T": 4096, "K": 64, "has_dict": True,
+                   "dict_len": pack.pack_dictionary(d)[1]}, None))
+    for what, pk, kw, revive in small:
+        plain, chk = checked_runs(decode_cu, ib, (pk.words, pk.nbits,
+                                                  pk.zflag, pk.dst_cap),
+                                  kw, revive)
+        held_identical(decode_cu, plain, chk, f"[13] {what}")
+        inputs["batch"] += 1
+
+    # 3. the 64 MiB stream's split decode, the very launch inflate_large
+    # makes: clean, and with [11b]'s 16 bit flips and cut tail
+    shared_args = None
+    mutated = malformed.mutate(big64[1], MIXED_SEED, malformed.FLIPS, True)
+    for what, data in (("clean", big64[1]),
+                       ("16 bit flips and a cut tail", mutated)):
+        calls = []
+        decode = decode_cu.decode_tokens
+
+        def kept(*a, **k):
+            out = decode(*a, **k)
+            calls.append((a, k, out))
+            return out
+
+        decode_cu.decode_tokens = kept
+        try:
+            dt.inflate_large(data, flags, use_device=True)
+        finally:
+            decode_cu.decode_tokens = decode
+        if len(calls) != 1:
+            raise AssertionError(f"[13] split decode, {what}: {len(calls)} "
+                                 f"decodes")
+        a, k, out = calls.pop()
+        held_identical(decode_cu, [out],
+                       [decode_cu.decode_tokens(*a, **k, checked=True)],
+                       f"[13] split decode, {what}")
+        inputs["shared_input"] += 1
+        shared_args = shared_args or (a, k)
+        del out
+
+    # 4. the chunk kernel on [2b]'s chunk, timed in turns
+    packed = pack.pack_streams(streams, 1, BLOCK)
+    chunk_in, words = big_chunk(decode_cu, ib, packed)
+    del packed
+    outs = {}
+    timers = [timed_entry(lib, "decode_chunk_launch") for lib in libs]
+    with timers[0], timers[1]:
+        for checked in (False, True) + (False, True, True, False):
+            x = [t.clone() for t in chunk_in]
+            outs[checked] = decode_cu.decode_chunk(
+                x[0], x[1], words, *x[2:], K=CHUNK_K, checked=checked)
+    chunk_ms = [t.ms[1:] for t in timers]         # after a warm-up each
+    if not all(torch.equal(a, b) for a, b in zip(outs[False], outs[True])):
+        raise AssertionError("[13] the checked chunk kernel differs from the "
+                             "unchecked one (tokens, state rows or lens)")
+    inputs["chunk"] += 1
+    del outs
+
+    # 5. adler32 on the bench's rows (timed in turns), and at lengths -1,
+    # 0, C and C + 1 over rows that start off a 16-byte boundary
+    host = np.zeros((N_STREAMS, BLOCK), np.uint8)
+    for i, pl in enumerate(payloads):
+        host[i, : len(pl)] = np.frombuffer(pl, np.uint8)
+    data = up(host)
+    del host
+    lengths = up(np.asarray([len(pl) for pl in payloads], np.int32))
+    sums = {}
+    timers = [timed_entry(lib, "adler32_batch_launch") for lib in libs]
+    with timers[0], timers[1]:
+        for checked in (False, True) + (False, True, True, False) * \
+                CHECKED_ROUNDS:
+            sums[checked] = checksums_cu.adler32_batch_cuda(
+                data, lengths, checked=checked)
+    adler_ms = [t.ms[1:] for t in timers]         # after a warm-up each
+    C = 6001
+    g = torch.Generator(device="cpu").manual_seed(13)
+    wide = torch.randint(0, 256, (8, C + 67), dtype=torch.uint8,
+                         generator=g).to(dev)
+    edge = torch.tensor([-1, 0, C, C + 1, 1, 15, 17, C - 1],
+                        dtype=torch.int32, device=dev)
+    edges = [checksums_cu.adler32_batch_cuda(wide[:, 3:3 + C], edge,
+                                             checked=checked)
+             for checked in (False, True)]
+    if not torch.equal(sums[False], sums[True]) \
+            or not torch.equal(*edges):
+        raise AssertionError("[13] the checked adler32 kernel differs from "
+                             "the unchecked one")
+    inputs["adler32"] += 2
+    # the fault records' counts over every input (each launch raised on a
+    # fault already)
+    faults = dict(build.faults)
+    if any(faults.values()):
+        raise AssertionError(f"[13] faults over the inputs: {faults}")
+
+    # one injected access a site, in the middle slot of a block in the
+    # middle of each launch
+    caught = {"batch": 0, "shared_input": 0, "chunk": 0, "adler32": 0}
+    pk = pack.pack_streams(streams[:INJECT_LANES], 1, BLOCK)
+    args = (up(pk.words.view(np.int32)), up(pk.nbits), up(pk.zflag),
+            up(pk.dst_cap))
+    b = INJECT_LANES // lanes // 2
+    lane = int(decode_cu.stream_order(pk.nbits)[b * lanes + mid])
+    for site in STREAM_SITES:
+        caught["batch"] += injected(
+            lambda: decode_cu.decode_tokens(*args, T=T, inject=(site, lane)),
+            "decode_stream", site, lane, b, mid)
+    a, k = shared_args
+    b = len(a[1]) // lanes // 2
+    lane = int(decode_cu.stream_order(a[1], k["limit"], k["start_bit"])[
+        b * lanes + mid])
+    for site in STREAM_SITES:
+        caught["shared_input"] += injected(
+            lambda: decode_cu.decode_tokens(*a, **k, inject=(site, lane)),
+            "decode_stream", site, lane, b, mid)
+    b = chunk_in[0].shape[1] // 128 // 2
+    lane = b * 128 + 64
+    for site in CHUNK_SITES:
+        x = [t.clone() for t in chunk_in]
+        caught["chunk"] += injected(
+            lambda: decode_cu.decode_chunk(x[0], x[1], words, *x[2:],
+                                           K=CHUNK_K, inject=(site, lane)),
+            "decode_chunk", site, lane, b, 64)
+    lane = N_STREAMS // 2
+    caught["adler32"] += injected(
+        lambda: checksums_cu.adler32_batch_cuda(data, lengths,
+                                                inject=("adler32", lane)),
+        "adler32_batch", "adler32", lane, lane, 0)
+
+    med = lambda v: float(np.median(v))
+    return {
+        "inputs": inputs, "caught": caught,
+        "launches": {"decode_stream": decode_cu.checked_launches,
+                     "decode_chunk": decode_cu.checked_chunk_launches,
+                     "adler32_batch": checksums_cu.checked_launches},
+        "ms": {"clean": [med(times["clean"][1]), med(times["clean"][0])],
+               "mixed": [med(times["mixed"][1]), med(times["mixed"][0])],
+               "chunk": [med(chunk_ms[1]), med(chunk_ms[0])],
+               "adler32": [med(adler_ms[1]), med(adler_ms[0])]},
+        "times": {"clean": times["clean"], "chunk": chunk_ms,
+                  "adler32": adler_ms},
+        "faults": faults,
+        "ptxas": {"unchecked": ptxas_kernels(build.build_log, "unchecked"),
+                  "checked": ptxas_kernels(build.checked_build_log,
+                                           "checked")}}
+
+
+def no_checked_launches(decode_cu, checksums_cu, where):
+    """The main path never launches the checked build."""
+    n = (decode_cu.checked_launches, decode_cu.checked_chunk_launches,
+         checksums_cu.checked_launches)
+    if any(n):
+        raise AssertionError(f"{where}: checked launches (decode_stream, "
+                             f"decode_chunk, adler32_batch) {n}")
 
 
 def main() -> int:
@@ -1233,18 +1626,23 @@ def main() -> int:
     log(f"[1] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:
+    with ThreadPoolExecutor(max_workers=3) as ex:
         host_build = ex.submit(native.load)
+        checked_build = ex.submit(build.load, True)   # [13]'s
         build.load()
         host_build.result()
+        checked_build.result()
     log(f"[1] builds: nvcc (decode_stream.cu, adler32_batch.cu) "
-        f"{build.build_seconds:.2f} s, g++ (defl_host.cc) "
+        f"{build.build_seconds:.2f} s, its checked build (-DDEFL_CHECKED "
+        f"-lineinfo) {build.checked_build_seconds:.2f} s, g++ (defl_host.cc) "
         f"{native.build_seconds:.2f} s, together "
         f"{time.perf_counter() - t0:.2f} s; {build.lib_path()}, "
-        f"{native.lib_path()}")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[1]   ptxas: {line.strip()}")
+        f"{build.lib_path(True)}, {native.lib_path()}")
+    for tag, text in (("", build.build_log),
+                      ("checked ", build.checked_build_log)):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[1]   {tag}ptxas: {line.strip()}")
 
     # ---- 2a. small matrix ----
     err_small = phase_small_matrix(decode_cu, ib, pack, native)
@@ -1322,11 +1720,12 @@ def main() -> int:
         raise AssertionError(f"main path: {fallbacks} host fallbacks")
     if launches <= 0:
         raise AssertionError("main path never launched the decode kernel")
+    no_checked_launches(decode_cu, checksums_cu, "[3] main path")
     fetched = m1["token_fetch_bytes"] - m0.get("token_fetch_bytes", 0)
     log(f"[3] inflate_batch: {N_STREAMS} lanes OK and byte-equal, "
-        f"0 host fallbacks, {launches} decode_stream launches, "
-        f"{fetched} token bytes fetched; wall {wall:.3f} s = "
-        f"{raw / wall / 1e9:.4f} GB/s")
+        f"0 host fallbacks, {launches} decode_stream launches (0 of the "
+        f"checked build), {fetched} token bytes fetched; wall {wall:.3f} s "
+        f"= {raw / wall / 1e9:.4f} GB/s")
     del results, outputs
 
     # ---- 4. pipeline over two distinct batches ----
@@ -1348,6 +1747,7 @@ def main() -> int:
         raise AssertionError(f"pipeline: (ok, wrong) per batch {per_batch}")
     if decode_cu.launches <= l0:
         raise AssertionError("pipeline never launched the decode kernel")
+    no_checked_launches(decode_cu, checksums_cu, "[4] pipeline")
     # the warm-up decode of batch 0 fetches nothing: B fetches in the loop
     log(f"[4] pipeline_inflate: {B} batches, every lane OK and byte-equal; "
         f"wall {pwall:.3f} s, pipeline_wall_GBps "
@@ -1506,6 +1906,7 @@ def main() -> int:
     del mixed
     torch.cuda.empty_cache()
     b_line, b_log, b_launches, b_secs = phase_bench(s_stats["tok_rows"])
+    no_checked_launches(decode_cu, checksums_cu, "[3]-[11]")
     for ln in b_log:
         log(f"[12]   {ln}")
     log(f"[12] {json.dumps(b_line)}")
@@ -1514,9 +1915,52 @@ def main() -> int:
         f"stream on the device route ({b_line['large64_device_lanes_valid']}"
         f" of {b_line['large64_device_lanes']} lanes valid), "
         f"dist_overhead_pct {b_line['dist_overhead_pct']} at the bench's "
-        f"size, {b_launches} decode_stream launches, token fetch "
+        f"size, {b_launches} decode_stream launches and no checked one in "
+        f"its process, token fetch "
         f"{b_line['pipeline_fetch_bytes_per_batch']} B a batch; value "
         f"{b_line['value']} GB/s; wall {b_secs:.1f} s")
+
+    # ---- 13. the kernels' checked build ----
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mixed, _ = corpus.mixed_batch(streams, payloads, MIXED_SEED)
+    ck13 = phase_checked(dt, decode_cu, checksums_cu, ib, pack, malformed,
+                         streams, payloads, mixed, big[0], flags)
+    del mixed
+    n_in, n_caught, n_launch = (ck13["inputs"], ck13["caught"],
+                                ck13["launches"])
+    ms13 = ck13["ms"]
+    log(f"[13] checked build (csrc/checked.cuh: every device- and "
+        f"shared-memory access checked against its extent, shared memory "
+        f"also against a shadow of what the launch wrote): 0 faults over "
+        f"{n_in['batch']} batch-mode inputs of the stream kernel (the bench "
+        f"batch clean and mixed, fuzz seeds {list(CHECKED_FUZZ_SEEDS)}, the "
+        f"C4/C5 cut streams, [2a]'s matrix with its EFULL resume, its "
+        f"dictionary stream), {n_in['shared_input']} in shared-input mode "
+        f"(the 64 MiB stream's split-decode launch, clean and with "
+        f"{malformed.FLIPS} bit flips and a cut tail), {n_in['chunk']} of "
+        f"the chunk kernel ([2b]'s N={N_STREAMS}, K={CHUNK_K} chunk) and "
+        f"{n_in['adler32']} of adler32 ([{N_STREAMS}, {BLOCK}], and lengths "
+        f"-1, 0, C, C+1 over rows 3 bytes off a 16-byte boundary); every "
+        f"checked launch == the unchecked one bit for bit (tokens, carry, "
+        f"totals); checked launches {n_launch}")
+    log(f"[13] injected accesses caught, each with its own site and lane in "
+        f"the middle slot of a block: stream kernel {n_caught['batch']} of "
+        f"{len(STREAM_SITES)} in batch mode and {n_caught['shared_input']} "
+        f"in shared-input mode ({', '.join(STREAM_SITES)}), chunk kernel "
+        f"{n_caught['chunk']} of {len(CHUNK_SITES)} "
+        f"({', '.join(CHUNK_SITES)}), adler32 {n_caught['adler32']} of 1")
+    log(f"[13] ms, checked against unchecked, medians of launches in turns: "
+        f"stream kernel at {N_STREAMS} x {BLOCK} B {ms13['clean'][0]:.4f} "
+        f"against {ms13['clean'][1]:.4f} (mixed batch {ms13['mixed'][0]:.4f} "
+        f"against {ms13['mixed'][1]:.4f}); chunk kernel "
+        f"{ms13['chunk'][0]:.4f} against {ms13['chunk'][1]:.4f}; adler32 "
+        f"{ms13['adler32'][0]:.4f} against {ms13['adler32'][1]:.4f}; all "
+        f"times {json.dumps(ck13['times'])}")
+    for build_name, rec in ck13["ptxas"].items():
+        log(f"[13] ptxas, {build_name} build: {json.dumps(rec)}")
+    log(f"[13] card: {smi}; the checked build took "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
     # decode_stream: the whole-batch launch of [2c]; plain_ms is the chunk
     # loop's time for plain_lanes of its lanes (the twin's time hardly
@@ -1566,7 +2010,28 @@ def main() -> int:
         "sanitizer": san,
         # [12]: launches in the bench's own process (its main path: the
         # decode, the pipelines, the split decode)
-        "bench_launches": b_launches}, {
+        "bench_launches": b_launches,
+        # [13]: the checked build; faults: the fault records' counts over
+        # [13]'s inputs (any fault fails the run); ms: the checked launch
+        # at [2c]'s shape, unchecked_ms beside it
+        "checked": {
+            "launches": n_launch["decode_stream"],
+            "faults": ck13["faults"]["decode_stream"],
+            "inputs": n_in["batch"] + n_in["shared_input"],
+            "injections_caught": n_caught["batch"] + n_caught["shared_input"],
+            "ms": ms13["clean"][0], "unchecked_ms": ms13["clean"][1],
+            "ptxas": {k: v["decode_stream_kernel"]
+                      for k, v in ck13["ptxas"].items()},
+            "shared_input": {"inputs": n_in["shared_input"],
+                             "injections_caught": n_caught["shared_input"]},
+            "chunk": {"launches": n_launch["decode_chunk"],
+                      "faults": ck13["faults"]["decode_chunk"],
+                      "inputs": n_in["chunk"],
+                      "injections_caught": n_caught["chunk"],
+                      "ms": ms13["chunk"][0],
+                      "unchecked_ms": ms13["chunk"][1],
+                      "ptxas": {k: v["decode_chunk_kernel"]
+                                for k, v in ck13["ptxas"].items()}}}}, {
         "name": "adler32_batch", "route": "cuda",
         "source": "defl_tpu_torch/csrc/adler32_batch.cu",
         "replaces": "defl_tpu/ops/pallas/checksums_pl.py:53",
@@ -1575,7 +2040,15 @@ def main() -> int:
         "bound_by": a_by, "library_ms": None,
         "malformed_launches": mal["resolve_device"]["launches"][
             "adler32_batch"],
-        "sanitizer": san}]
+        "sanitizer": san,
+        "checked": {
+            "launches": n_launch["adler32_batch"],
+            "faults": ck13["faults"]["adler32_batch"],
+            "inputs": n_in["adler32"],
+            "injections_caught": n_caught["adler32"],
+            "ms": ms13["adler32"][0], "unchecked_ms": ms13["adler32"][1],
+            "ptxas": {k: v["adler32_batch_kernel"]
+                      for k, v in ck13["ptxas"].items()}}}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

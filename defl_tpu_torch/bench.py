@@ -94,7 +94,7 @@ import torch
 from defl_tpu_torch import metrics
 from defl_tpu_torch.breakdown import corpus, profile
 from defl_tpu_torch.ops import inflate_batch as ib
-from defl_tpu_torch.ops.cuda import decode_cu
+from defl_tpu_torch.ops.cuda import checksums_cu, decode_cu
 from defl_tpu_torch.ops.resolve import resolve_tokens
 from defl_tpu_torch.runtime import native
 from defl_tpu_torch.runtime.pack import pack_streams
@@ -494,7 +494,12 @@ def run(device: str = "cuda") -> dict:
         log(f"{n_cards}-card sharded: {multi_gbps:.3f} GB/s "
             f"(eff {scaling_eff:.2f})")
 
-    log("launches: " + json.dumps({"decode_stream": decode_cu.launches}))
+    # the checked build's launches, which no phase of the bench makes
+    log("launches: " + json.dumps({"decode_stream": decode_cu.launches,
+                                   "checked": {
+        "decode_stream": decode_cu.checked_launches,
+        "decode_chunk": decode_cu.checked_chunk_launches,
+        "adler32_batch": checksums_cu.checked_launches}}))
 
     # Headline: the pipeline's wall with the real token fetch; without that
     # phase, the JAX package's (the stubbed pipeline, else the slower of

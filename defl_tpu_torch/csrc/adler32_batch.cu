@@ -28,20 +28,63 @@
 //
 // Rows need no alignment: bytes before the first 16-byte boundary and
 // after the last whole vector are read one by one.
+//
+// The checked build (-DDEFL_CHECKED, checked.cuh) checks each read of a
+// lane's bytes against its min(max(len, 0), C) bytes and each checksum
+// store against N, at site SITE_ADLER; without it, `in` is true.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "checked.cuh"
 
 namespace {
 
 constexpr uint32_t MOD = 65521;
 constexpr int THREADS = 256;
 
+#ifdef DEFL_CHECKED
+// a thread's checks (checked.cuh's Checks: its lane is the block, its slot
+// the thread; an injection moves thread 0's first access) and the lanes
+struct AdlerChk : Checks {
+  int N;
+  __device__ __forceinline__ bool in(long long i, long long extent) const {
+    return Checks::in(SITE_ADLER, i, extent);
+  }
+  // lane i's checksum, stored only for a lane of the batch
+  __device__ __forceinline__ void store(uint32_t* out, int i,
+                                        uint32_t v) const {
+    if (in(i, N)) out[i] = v;
+  }
+};
+#else
+struct AdlerChk {
+  __device__ __forceinline__ bool in(long long, long long) const {
+    return true;
+  }
+  __device__ __forceinline__ void store(uint32_t* out, int i,
+                                        uint32_t v) const {
+    out[i] = v;
+  }
+};
+#endif
+
 __global__ void __launch_bounds__(THREADS)
 adler32_batch_kernel(const uint8_t* __restrict__ data, long long row_stride,
                      int C, const int32_t* __restrict__ lengths,
-                     uint32_t* __restrict__ out) {
+                     uint32_t* __restrict__ out
+#ifdef DEFL_CHECKED
+                     , int N, fault_t* __restrict__ fault, int inject_lane
+#endif
+                     ) {
   const int lane = blockIdx.x;
   const int t = threadIdx.x;
+#ifdef DEFL_CHECKED
+  AdlerChk ck{{fault, lane, lane, t, 0}, N};
+  if (!ck.in(lane, N)) return;  // the whole block: the barrier stays whole
+  ck.inject = lane == inject_lane && t == 0 ? SITE_ADLER : 0;
+#else
+  const AdlerChk ck{};
+#endif
   const uint8_t* row = data + (size_t)lane * (size_t)row_stride;
   int len = lengths[lane];
   len = len < 0 ? 0 : (len > C ? C : len);
@@ -52,7 +95,7 @@ adler32_batch_kernel(const uint8_t* __restrict__ data, long long row_stride,
   int head = (int)((16 - ((uintptr_t)row & 15)) & 15);
   if (head > len) head = len;
   if (t < head) {
-    const uint32_t d = row[t];
+    const uint32_t d = ck.in(t, len) ? row[t] : 0u;
     s1 += d;
     s2 += (uint64_t)t * d;
   }
@@ -61,7 +104,8 @@ adler32_batch_kernel(const uint8_t* __restrict__ data, long long row_stride,
   const int nvec = (len - head) >> 4;
   const uint4* vec = reinterpret_cast<const uint4*>(row + head);
   for (int v = t; v < nvec; v += THREADS) {
-    const uint4 q = __ldg(vec + v);
+    const uint4 q = ck.in(head + 16ll * v + 15, len) ? __ldg(vec + v)
+                                                     : make_uint4(0, 0, 0, 0);
     const uint32_t w[4] = {q.x, q.y, q.z, q.w};
     uint32_t sum = 0, wsum = 0;  // sum d, sum k*d for k in [0, 16)
 #pragma unroll
@@ -78,7 +122,7 @@ adler32_batch_kernel(const uint8_t* __restrict__ data, long long row_stride,
   // tail: bytes after the last whole vector
   const int tail0 = head + (nvec << 4);
   if (t < len - tail0) {
-    const uint32_t d = row[tail0 + t];
+    const uint32_t d = ck.in(tail0 + t, len) ? row[tail0 + t] : 0u;
     s1 += d;
     s2 += (uint64_t)(tail0 + t) * d;
   }
@@ -107,7 +151,7 @@ adler32_batch_kernel(const uint8_t* __restrict__ data, long long row_stride,
     const uint64_t lm = (uint64_t)len % MOD;
     const uint32_t a = (uint32_t)((1 + S1) % MOD);
     const uint32_t b = (uint32_t)((lm + lm * S1 % MOD + MOD - S2) % MOD);
-    out[lane] = (b << 16) | a;
+    ck.store(out, lane, (b << 16) | a);
   }
 }
 
@@ -119,10 +163,15 @@ adler32_batch_kernel(const uint8_t* __restrict__ data, long long row_stride,
 // `stream`, does not synchronise, and returns cudaGetLastError() (0 when
 // the launch was accepted).  The calling thread's current device is set
 // to `device` for the launch and given back after it, as in
-// decode_stream.cu.
+// decode_stream.cu.  The checked build also takes the fault record
+// [FAULT_WORDS], zeroed, and the lane of one injected fault (-1: none).
 extern "C" int adler32_batch_launch(const void* data, long long row_stride,
                                     int N, int C, const void* lengths,
-                                    void* out, void* stream, int device) {
+                                    void* out, void* stream, int device
+#ifdef DEFL_CHECKED
+                                    , void* fault, int inject_lane
+#endif
+                                    ) {
   int prev = -1;
   cudaError_t err = cudaGetDevice(&prev);
   if (err != cudaSuccess) return (int)err;
@@ -133,7 +182,11 @@ extern "C" int adler32_batch_launch(const void* data, long long row_stride,
   if (N > 0)
     adler32_batch_kernel<<<N, THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)data, row_stride, C, (const int32_t*)lengths,
-        (uint32_t*)out);
+        (uint32_t*)out
+#ifdef DEFL_CHECKED
+        , N, (fault_t*)fault, inject_lane
+#endif
+        );
   err = cudaGetLastError();
   if (prev != device) cudaSetDevice(prev);
   return (int)err;

@@ -60,10 +60,18 @@
 // The per-lane code is plain C++ apart from a few intrinsics, so a host
 // build of this file (tests/test_torch_stream_decode.py) runs the same
 // step and build code lane by lane on the CPU.
+//
+// The checked build (-DDEFL_CHECKED, checked.cuh) routes every access to
+// device and shared memory through the accessors ld, st, StreamMem::at and
+// StreamMem::lut_at, which then check it against its extent; the stream
+// kernel also keeps a shadow of initialisation, one bit per shared word and
+// lookup entry of each lane, set by every write and tested by every read.
+// Without DEFL_CHECKED the accessors are the plain index expressions.
 #include <cstdint>
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
+#include "checked.cuh"
 
 namespace {
 
@@ -106,7 +114,91 @@ constexpr int LUT_LEN_SHIFT = 9;
 typedef unsigned long long meta_t;
 constexpr int M_ROWS = 0, M_STEPS = 1, M_BUILDS = 2, M_SORTED = 3,
               M_BUILD_CYCLES = 4, M_LANE_CYCLES = 5, M_TOKENS = 6;
+constexpr int META_WORDS = 8;
+// rows of the state and of each table (count, first, offs, bound, adjoff:
+// kind*16 + len)
+constexpr int NROWS = 20, TABLE_ROWS = 48;
 constexpr int THREADS = 128;  // decode_chunk's block
+// the checked stream kernel's shadow: a lane's bits, its shared words first
+constexpr int SHADOW_WORDS = (LANE_WORDS + LUT_ENTRIES + 31) / 32;
+
+// ---- the checks of one lane ------------------------------------------------
+
+#ifdef DEFL_CHECKED
+// A lane's checks (checked.cuh's Checks), its shadow, its block's shared
+// memory and lanes, and the words of the launch's totals (decode_chunk:
+// none).
+struct Chk : Checks {
+  uint32_t* shadow;
+  const uint32_t* smem;
+  int lanes, meta_words;
+
+  // entry e of the lane's own `extent` entries, `stride` apart from the
+  // start of its column (a lane-minor array: stride N) or row (a
+  // lane-major one: stride 1); the access lands `off` from that start and
+  // must land on entry e
+  __device__ __forceinline__ bool at(int site, long long off, long long e,
+                                     long long extent,
+                                     long long stride) const {
+    if (inject == site) {
+      e += extent;
+      off += extent * stride;
+      inject = 0;
+    }
+    if (e >= 0 && e < extent && off == e * stride) return true;
+    if (e >= 0 && e < extent)  // in its extent, but elsewhere
+      record_fault(rec, site, lane, block, slot, off, extent * stride);
+    else
+      record_fault(rec, site, lane, block, slot, e, extent);
+    return false;
+  }
+  // word m of the launch's totals, which the atomics update: inside the
+  // words the wrapper gave them
+  __device__ __forceinline__ bool meta(int m) const {
+    return in(SITE_META, m, meta_words);
+  }
+  __device__ __forceinline__ void mark(int bit) const {
+    shadow[bit >> 5] |= 1u << (bit & 31);
+  }
+  __device__ __forceinline__ void forget(int bit) const {
+    shadow[bit >> 5] &= ~(1u << (bit & 31));
+  }
+  // a read of shadow bit `bit`: a fault unless this launch wrote it
+  __device__ __forceinline__ bool written(int bit) const {
+    if ((shadow[bit >> 5] >> (bit & 31)) & 1u) return true;
+    record_fault(rec, SITE_UNINIT, lane, block, slot, bit,
+                 LANE_WORDS + LUT_ENTRIES);
+    return false;
+  }
+};
+#else
+// the unchecked build: every access is where it should be
+struct Chk {
+  __device__ __forceinline__ bool in(int, long long, long long) const {
+    return true;
+  }
+  __device__ __forceinline__ bool at(int, long long, long long, long long,
+                                     long long) const {
+    return true;
+  }
+  __device__ __forceinline__ bool meta(int) const { return true; }
+};
+#endif
+
+// *p, checked to be entry e of the lane's own `extent` entries, `stride`
+// apart from `own` (Chk::at); the unchecked build reads *p
+template <class T>
+__device__ __forceinline__ T ld(const Chk& ck, int site, const T* p,
+                                const T* own, int e, int extent,
+                                size_t stride) {
+  return ck.at(site, p - own, e, extent, (long long)stride) ? *p : T();
+}
+template <class T, class V>
+__device__ __forceinline__ void st(const Chk& ck, int site, T* p,
+                                   const T* own, int e, int extent,
+                                   size_t stride, V v) {
+  if (ck.at(site, p - own, e, extent, (long long)stride)) *p = v;
+}
 
 // RFC 1951 code-length code order
 __constant__ int kClOrder[19] = {16, 17, 18, 0, 8, 7, 9, 6, 10, 5,
@@ -146,42 +238,51 @@ struct Lane {
   uint32_t cl_lo, cl_hi;
   int nbits, cap, limit, reach, in_base;
 
-  __device__ __forceinline__ void load_state(const int32_t* r, size_t n) {
-    state = r[R_STATE * n];
-    bitpos = r[R_BITPOS * n];
-    fin = r[R_FINAL * n];
-    hlit = r[R_HLIT * n];
-    hdist = r[R_HDIST * n];
-    hclen = r[R_HCLEN * n];
-    idx = r[R_IDX * n];
-    prev = r[R_PREV * n];
-    dst_pos = r[R_DSTPOS * n];
-    need_build = r[R_NEEDB * n];
-    resume_state = r[R_RESUME * n];
-    status = r[R_STATUS * n];
-    cl_lo = (uint32_t)r[R_CLLO * n];
-    cl_hi = (uint32_t)r[R_CLHI * n];
-    nbits = r[R_NBITS * n];
-    cap = r[R_CAP * n];
-    limit = r[R_LIMIT * n];
-    reach = r[R_REACH * n];
-    in_base = r[R_INBASE * n];
+  // r: the lane's column of the state rows [NROWS, n]
+  __device__ __forceinline__ void load_state(const int32_t* r, size_t n,
+                                             const Chk& ck) {
+    auto row = [&](int R) {
+      return ld(ck, SITE_CARRY, r + R * n, r, R, NROWS, n);
+    };
+    state = row(R_STATE);
+    bitpos = row(R_BITPOS);
+    fin = row(R_FINAL);
+    hlit = row(R_HLIT);
+    hdist = row(R_HDIST);
+    hclen = row(R_HCLEN);
+    idx = row(R_IDX);
+    prev = row(R_PREV);
+    dst_pos = row(R_DSTPOS);
+    need_build = row(R_NEEDB);
+    resume_state = row(R_RESUME);
+    status = row(R_STATUS);
+    cl_lo = (uint32_t)row(R_CLLO);
+    cl_hi = (uint32_t)row(R_CLHI);
+    nbits = row(R_NBITS);
+    cap = row(R_CAP);
+    limit = row(R_LIMIT);
+    reach = row(R_REACH);
+    in_base = row(R_INBASE);
   }
-  __device__ __forceinline__ void store_state(int32_t* r, size_t n) const {
-    r[R_STATE * n] = state;
-    r[R_BITPOS * n] = bitpos;
-    r[R_FINAL * n] = fin;
-    r[R_HLIT * n] = hlit;
-    r[R_HDIST * n] = hdist;
-    r[R_HCLEN * n] = hclen;
-    r[R_IDX * n] = idx;
-    r[R_PREV * n] = prev;
-    r[R_DSTPOS * n] = dst_pos;
-    r[R_NEEDB * n] = need_build;
-    r[R_RESUME * n] = resume_state;
-    r[R_STATUS * n] = status;
-    r[R_CLLO * n] = (int32_t)cl_lo;
-    r[R_CLHI * n] = (int32_t)cl_hi;
+  __device__ __forceinline__ void store_state(int32_t* r, size_t n,
+                                              const Chk& ck) const {
+    auto row = [&](int R, int32_t v) {
+      st(ck, SITE_CARRY, r + R * n, r, R, NROWS, n, v);
+    };
+    row(R_STATE, state);
+    row(R_BITPOS, bitpos);
+    row(R_FINAL, fin);
+    row(R_HLIT, hlit);
+    row(R_HDIST, hdist);
+    row(R_HCLEN, hclen);
+    row(R_IDX, idx);
+    row(R_PREV, prev);
+    row(R_DSTPOS, dst_pos);
+    row(R_NEEDB, need_build);
+    row(R_RESUME, resume_state);
+    row(R_STATUS, status);
+    row(R_CLLO, (int32_t)cl_lo);
+    row(R_CLHI, (int32_t)cl_hi);
   }
 };
 
@@ -189,20 +290,25 @@ struct Lane {
 
 struct Row {
   const uint32_t* row;
-  int W;
+  int W;     // the row's words, the caller's zero padding included
   bool vec;  // rows start on 16-byte boundaries and W % 4 == 0
   // words [4g, 4g + 4); past the row's end it is the last group (the
   // caller's zero padding) or, word by word, the last word
-  __device__ __forceinline__ uint4 group(int g) const {
+  __device__ __forceinline__ uint4 group(int g, const Chk& ck) const {
     uint4 v;
     if (vec) {
       g = min(max(g, 0), (W >> 2) - 1);
-      v = reinterpret_cast<const uint4*>(row)[g];
+      const uint4* groups = reinterpret_cast<const uint4*>(row);
+      v = ld(ck, SITE_INPUT, groups + g, groups, g, W >> 2, 1);
     } else {
-      v.x = row[min(max(4 * g, 0), W - 1)];
-      v.y = row[min(max(4 * g + 1, 0), W - 1)];
-      v.z = row[min(max(4 * g + 2, 0), W - 1)];
-      v.w = row[min(max(4 * g + 3, 0), W - 1)];
+      auto word = [&](int i) {
+        i = min(max(i, 0), W - 1);
+        return ld(ck, SITE_INPUT, row + i, row, i, W, 1);
+      };
+      v.x = word(4 * g);
+      v.y = word(4 * g + 1);
+      v.z = word(4 * g + 2);
+      v.w = word(4 * g + 3);
     }
     return v;
   }
@@ -230,6 +336,7 @@ struct ChunkMem {
   const uint32_t* syms;   // + lane
   uint32_t* lens_pk;      // + lane
   size_t n;
+  Chk ck;
   int bnd[48];  // code-space boundaries, kind*16 + len
   int mlen[3];
   Row in;
@@ -239,7 +346,9 @@ struct ChunkMem {
 
   __device__ __forceinline__ int maxlen(int kind) const { return mlen[kind]; }
   __device__ __forceinline__ void lens_or(int wi, uint32_t v) const {
-    lens_pk[wi * n] |= v;
+    uint32_t* p = lens_pk + wi * n;
+    st(ck, SITE_CARRY, p, lens_pk, wi, LENS_WORDS, n,
+       ld(ck, SITE_CARRY, p, lens_pk, wi, LENS_WORDS, n) | v);
   }
   __device__ __forceinline__ void put(int at, uint4 v) {
     w[at] = v.x;
@@ -249,8 +358,8 @@ struct ChunkMem {
   }
   __device__ __forceinline__ void open(int w0) {
     base = w0 & ~3;
-    put(0, in.group(base >> 2));
-    put(4, in.group((base >> 2) + 1));
+    put(0, in.group(base >> 2, ck));
+    put(4, in.group((base >> 2) + 1, ck));
   }
   // make base <= w0 < base + 4: a step reads at most 131 bits from its
   // word-aligned cursor, i.e. words [w0, w0 + 5), which then lie inside
@@ -261,7 +370,7 @@ struct ChunkMem {
 #pragma unroll
       for (int j = 0; j < 4; ++j) w[j] = w[j + 4];
       base += 4;
-      put(4, in.group((base >> 2) + 1));
+      put(4, in.group((base >> 2) + 1, ck));
     } else {
       open(w0);
     }
@@ -289,14 +398,60 @@ struct ChunkMem {
     int rv;
     clen = code_length(pk, rv, [this](int l) { return bnd[KIND * 16 + l]; });
     if (clen == 0) return 0;
-    int symidx = adjoff[(KIND * 16 + clen) * n] + (rv >> (15 - clen));
+    const int e = KIND * 16 + clen;
+    int symidx = ld(ck, SITE_CARRY, adjoff + e * n, adjoff, e, TABLE_ROWS, n) +
+                 (rv >> (15 - clen));
     symidx = min(max(symidx, 0), SYMS_BANK - 1);
     const int q = symidx / 3;
-    return bank_symbol(syms[q * n], symidx, q);
+    return bank_symbol(ld(ck, SITE_CARRY, syms + q * n, syms, q, SYMS_WORDS, n),
+                       symidx, q);
   }
 };
 
 // ---- the stream kernel's memory: everything in shared memory -----------------
+
+#ifdef DEFL_CHECKED
+// The checked build's view of a lane's shared word (LUT false) or lookup
+// entry (LUT true): every access must land on entry e of the lane's own
+// column of the block's words (or lookup entries), e < LANE_WORDS (or
+// LUT_ENTRIES) and its slot < the block's lanes; a write marks the entry
+// in the lane's shadow, and a read of an entry that is not marked is an
+// "uninit" fault.
+template <class T, bool LUT>
+struct SharedRef {
+  static constexpr int SITE = LUT ? SITE_LUT : SITE_SHARED;
+  static constexpr int EXTENT = LUT ? LUT_ENTRIES : LANE_WORDS;
+  static constexpr int BIT0 = LUT ? LANE_WORDS : 0;
+  T* p;  // the block's entries + this lane's slot
+  int stride, e;
+  const Chk* ck;
+
+  __device__ __forceinline__ bool ok() const {
+    const T* col = reinterpret_cast<const T*>(
+                       ck->smem + (LUT ? LANE_WORDS * ck->lanes : 0)) +
+                   ck->slot;
+    return ck->at(SITE, (p + e * stride) - col, e, EXTENT, ck->lanes) &&
+           ck->in(SITE, ck->slot, ck->lanes);
+  }
+  __device__ __forceinline__ operator T() const {
+    return ok() && ck->written(BIT0 + e) ? p[e * stride] : T();
+  }
+  __device__ __forceinline__ const SharedRef& operator=(T v) const {
+    if (ok()) {
+      ck->mark(BIT0 + e);
+      p[e * stride] = v;
+    }
+    return *this;
+  }
+  SharedRef& operator=(const SharedRef&) = delete;  // assign a value
+  __device__ __forceinline__ const SharedRef& operator|=(T v) const {
+    return *this = (T)(T(*this) | v);
+  }
+  __device__ __forceinline__ const SharedRef& operator+=(T v) const {
+    return *this = (T)(T(*this) + v);
+  }
+};
+#endif
 
 struct StreamMem {
   uint32_t* p;    // the block's words + this lane's slot
@@ -306,13 +461,23 @@ struct StreamMem {
   Row in;
   int base;      // the ring holds words [base, base + 8), base % 4 == 0
   uint4 ahead;   // words [base + 8, base + 12), loaded one refill early
+  Chk ck;
 
+#ifdef DEFL_CHECKED
+  __device__ __forceinline__ SharedRef<uint32_t, false> at(int e) const {
+    return {p, stride, e, &ck};
+  }
+  __device__ __forceinline__ SharedRef<uint16_t, true> lut_at(int e) const {
+    return {lut, stride, e, &ck};
+  }
+#else
   __device__ __forceinline__ uint32_t& at(int e) const {
     return p[e * stride];
   }
   __device__ __forceinline__ uint16_t& lut_at(int e) const {
     return lut[e * stride];
   }
+#endif
   __device__ __forceinline__ int maxlen(int kind) const { return mlen[kind]; }
   __device__ __forceinline__ void lens_or(int wi, uint32_t v) const {
     at(OFF_LENS + wi) |= v;
@@ -326,9 +491,9 @@ struct StreamMem {
   }
   __device__ __forceinline__ void open(int w0) {
     base = w0 & ~3;
-    put(base, in.group(base >> 2));
-    put(base + 4, in.group((base >> 2) + 1));
-    ahead = in.group((base >> 2) + 2);
+    put(base, in.group(base >> 2, ck));
+    put(base + 4, in.group((base >> 2) + 1, ck));
+    ahead = in.group((base >> 2) + 2, ck);
   }
   // make base <= w0 < base + 4 (see ChunkMem::seek).  The group that
   // enters the ring was requested at the last refill; the next one is
@@ -339,7 +504,7 @@ struct StreamMem {
     if (d >= 4 && d < 8) {
       put(base + 8, ahead);  // over words [base, base + 4)
       base += 4;
-      ahead = in.group((base >> 2) + 2);
+      ahead = in.group((base >> 2) + 2, ck);
     } else {
       open(w0);
     }
@@ -355,31 +520,56 @@ struct StreamMem {
   }
   template <int KIND>
   __device__ __forceinline__ int canon(uint32_t pk, int& clen) const;
+  template <int KIND, int FROM>
+  __device__ __forceinline__ uint32_t slow(uint32_t pk) const;
 };
 
 // The boundary-sum decode with every operand from shared memory, for the
 // code-length alphabet (FROM = 1) and for what a lookup table does not
 // hold (FROM = its bits + 1): no code of fewer than FROM bits matches, and
 // the boundaries grow with the length, so rev15 is past all of those and
-// only the lengths from FROM on are compared.  Out of line: it is rare,
-// and it takes p and stride by value so that the lane's StreamMem can
-// stay in registers.  Returns symbol | clen << 16, 0 when nothing matches.
-template <int KIND, int FROM>
-__device__ __noinline__ uint32_t canon_slow(const uint32_t* p, int stride,
-                                            uint32_t pk) {
+// only the lengths from FROM on are compared.  word(e) reads the lane's
+// shared word e.  Returns symbol | clen << 16, 0 when nothing matches.
+template <int KIND, int FROM, class WORD>
+__device__ __forceinline__ uint32_t canon_slow_from(WORD word, uint32_t pk) {
   const int rv = (int)(__brev(pk & 0x7FFFu) >> 17);
   int nge = FROM - 1;
 #pragma unroll
   for (int l = FROM; l <= 15; ++l)
-    nge += rv >= (int)p[(OFF_BND + KIND * 16 + l) * stride];
+    nge += rv >= (int)word(OFF_BND + KIND * 16 + l);
   if (nge >= 15) return 0;
   const int clen = nge + 1;
-  int symidx = (int)p[(OFF_ADJ + KIND * 16 + clen) * stride] +
-               (rv >> (15 - clen));
+  int symidx = (int)word(OFF_ADJ + KIND * 16 + clen) + (rv >> (15 - clen));
   symidx = min(max(symidx, 0), SYMS_BANK - 1);
   const int q = symidx / 3;
-  return (uint32_t)bank_symbol(p[(OFF_SYMS + q) * stride], symidx, q) |
+  return (uint32_t)bank_symbol(word(OFF_SYMS + q), symidx, q) |
          ((uint32_t)clen << 16);
+}
+
+// Out of line: it is rare.  The unchecked build takes p and stride by
+// value so that the lane's StreamMem can stay in registers.
+#ifdef DEFL_CHECKED
+template <int KIND, int FROM>
+__device__ __noinline__ uint32_t canon_slow(const StreamMem& M, uint32_t pk) {
+  return canon_slow_from<KIND, FROM>(
+      [&M](int e) { return (uint32_t)M.at(e); }, pk);
+}
+#else
+template <int KIND, int FROM>
+__device__ __noinline__ uint32_t canon_slow(const uint32_t* p, int stride,
+                                            uint32_t pk) {
+  return canon_slow_from<KIND, FROM>(
+      [p, stride](int e) { return p[e * stride]; }, pk);
+}
+#endif
+
+template <int KIND, int FROM>
+__device__ __forceinline__ uint32_t StreamMem::slow(uint32_t pk) const {
+#ifdef DEFL_CHECKED
+  return canon_slow<KIND, FROM>(*this, pk);
+#else
+  return canon_slow<KIND, FROM>(p, stride, pk);
+#endif
 }
 
 template <int KIND>
@@ -387,7 +577,7 @@ __device__ __forceinline__ int StreamMem::canon(uint32_t pk,
                                                 int& clen) const {
   uint32_t r;
   if (KIND == 0) {
-    r = canon_slow<0, 1>(p, stride, pk);
+    r = slow<0, 1>(pk);
   } else {
     constexpr int BITS = KIND == 1 ? LIT_LUT_BITS : DIST_LUT_BITS;
     constexpr int E0 = KIND == 1 ? 0 : (1 << LIT_LUT_BITS);
@@ -396,7 +586,7 @@ __device__ __forceinline__ int StreamMem::canon(uint32_t pk,
       clen = (int)(e >> LUT_LEN_SHIFT);
       return (int)(e & ((1u << LUT_LEN_SHIFT) - 1u));
     }
-    r = canon_slow<KIND, BITS + 1>(p, stride, pk);
+    r = slow<KIND, BITS + 1>(pk);
   }
   clen = (int)(r >> 16);
   return (int)(r & 0xFFFFu);
@@ -741,8 +931,11 @@ __device__ __forceinline__ void fill_lut(const StreamMem& M,
   constexpr int E0 = KIND == 1 ? 0 : (1 << LIT_LUT_BITS);
   for (int i = 0; i < (1 << BITS); ++i) M.lut_at(E0 + i) = 0;
   for (int l = 1; l <= BITS; ++l) {
-    const int c = min(count[KIND * 16 + l], 288);
-    const int f = first[KIND * 16 + l], o = offs[KIND * 16 + l];
+    const int e = KIND * 16 + l;
+    const int c = min(ld(M.ck, SITE_CARRY, count + e, count, e, TABLE_ROWS, 1),
+                      288);
+    const int f = ld(M.ck, SITE_CARRY, first + e, first, e, TABLE_ROWS, 1);
+    const int o = ld(M.ck, SITE_CARRY, offs + e, offs, e, TABLE_ROWS, 1);
     for (int r = 0; r < c; ++r) {
       const int symidx = min(max(o + r, 0), SYMS_BANK - 1), q = symidx / 3;
       const int sym = bank_symbol(M.at(OFF_SYMS + q), symidx, q);
@@ -771,9 +964,12 @@ __device__ __forceinline__ bool build_table(StreamMem& M, int32_t* count,
   int left = 1, code = 0, off = 0, cprev = 0;
   bool oversub = false;
   M.mlen[KIND] = 0;
-  count[KIND * 16] = 0;
-  first[KIND * 16] = 0;
-  offs[KIND * 16] = BASE;
+  auto row = [&M](int32_t* t, int e, int v) {  // the lane's row of a table
+    st(M.ck, SITE_CARRY, t + e, t, e, TABLE_ROWS, 1, v);
+  };
+  row(count, KIND * 16, 0);
+  row(first, KIND * 16, 0);
+  row(offs, KIND * 16, BASE);
   set_level<KIND>(M, 0, 0, 0, BASE);
 #pragma unroll
   for (int l = 1; l < 16; ++l) {
@@ -781,9 +977,9 @@ __device__ __forceinline__ bool build_table(StreamMem& M, int32_t* count,
     left = 2 * left - c;  // goes negative once oversubscribed: no shift
     oversub |= left < 0;
     code = (code + cprev) << 1;
-    count[KIND * 16 + l] = c;
-    first[KIND * 16 + l] = code;
-    offs[KIND * 16 + l] = off + BASE;
+    row(count, KIND * 16 + l, c);
+    row(first, KIND * 16 + l, code);
+    row(offs, KIND * 16 + l, off + BASE);
     set_level<KIND>(M, l, c, code, off + BASE);
     M.at(OFF_CNT + l) = (uint32_t)off;  // from here: the next free slot
     off += c;
@@ -822,7 +1018,7 @@ __device__ __forceinline__ void build_step(Lane& L, StreamMem& M,
           return (int)(((j < 10 ? lo : hi) >> (3 * (j < 10 ? j : j - 10))) &
                        7u);
         });
-    maxlen[0] = M.mlen[0];
+    st(M.ck, SITE_CARRY, maxlen, maxlen, 0, 3, 1, M.mlen[0]);
     for (int wi = 0; wi < LENS_WORDS; ++wi) M.at(OFF_LENS + wi) = 0;
     if (bad) {
       L.state = S_ERR;
@@ -848,8 +1044,8 @@ __device__ __forceinline__ void build_step(Lane& L, StreamMem& M,
     const bool over_d = build_table<2, 32, 36, DIST_BASE_>(
         M, count, first, offs,
         [&](int k) { return k < hdist ? nib(hlit + k) : 0; });
-    maxlen[1] = M.mlen[1];
-    maxlen[2] = M.mlen[2];
+    st(M.ck, SITE_CARRY, maxlen + 1, maxlen, 1, 3, 1, M.mlen[1]);
+    st(M.ck, SITE_CARRY, maxlen + 2, maxlen, 2, 3, 1, M.mlen[2]);
     if (over_l || over_d || nib(256) == 0) {  // a block needs a real EOB
       L.state = S_ERR;
       L.status = RES_ERR;
@@ -867,17 +1063,18 @@ __device__ __forceinline__ void build_step(Lane& L, StreamMem& M,
 // budget.  smem: the block's shared memory; slot, lanes: this lane's place
 // among the block's lanes.  meta[M_*] collect the call's totals.
 __device__ __forceinline__ void stream_lane(
-    uint32_t* smem, int slot, int lanes, int lane, int32_t* st,
+    uint32_t* smem, int slot, int lanes, int lane, int32_t* st_rows,
     uint32_t* lens, int32_t* count, int32_t* first, int32_t* offs,
     int32_t* maxlen, uint32_t* syms, const uint32_t* words, size_t row_stride,
     int W, int vec, uint32_t* tok, meta_t* meta, int N, int n_steps,
-    int has_dict) {
+    int has_dict, Chk ck) {
   const size_t n = (size_t)N;
   Lane L;
-  L.load_state(st + lane, n);
+  L.load_state(st_rows + lane, n, ck);
   if (L.status != STATUS_RUNNING) return;  // a fixed point already
 
   StreamMem M;
+  M.ck = ck;
   M.p = smem + slot;
   M.lut = reinterpret_cast<uint16_t*>(smem + (size_t)LANE_WORDS * lanes) +
           slot;
@@ -890,24 +1087,38 @@ __device__ __forceinline__ void stream_lane(
   syms += (size_t)lane * SYMS_WORDS;
   // the carry's tables: a resumed lane may be in the middle of a block
 #pragma unroll
-  for (int kind = 0; kind < 3; ++kind) M.mlen[kind] = maxlen[kind];
+  for (int kind = 0; kind < 3; ++kind)
+    M.mlen[kind] = ld(M.ck, SITE_CARRY, maxlen + kind, maxlen, kind, 3, 1);
   for (int i = 0; i < 48; ++i) {
-    const int c = count[i], f = first[i];
+    const int c = ld(M.ck, SITE_CARRY, count + i, count, i, TABLE_ROWS, 1);
+    const int f = ld(M.ck, SITE_CARRY, first + i, first, i, TABLE_ROWS, 1);
     M.at(OFF_BND + i) = (uint32_t)((f + c) << (15 - (i & 15)));
-    M.at(OFF_ADJ + i) = (uint32_t)(offs[i] - f);
+    M.at(OFF_ADJ + i) =
+        (uint32_t)(ld(M.ck, SITE_CARRY, offs + i, offs, i, TABLE_ROWS, 1) - f);
   }
   for (int q = 0; q < SYMS_WORDS; q += 4) {
-    const uint4 v = reinterpret_cast<const uint4*>(syms)[q >> 2];
+    const uint4* vs = reinterpret_cast<const uint4*>(syms);
+    const uint4 v = ld(M.ck, SITE_CARRY, vs + (q >> 2), vs, q >> 2,
+                       SYMS_WORDS / 4, 1);
     M.at(OFF_SYMS + q) = v.x;
     M.at(OFF_SYMS + q + 1) = v.y;
     M.at(OFF_SYMS + q + 2) = v.z;
     M.at(OFF_SYMS + q + 3) = v.w;
   }
   for (int wi = 0; wi < LENS_WORDS; ++wi)
-    M.at(OFF_LENS + wi) = lens[wi * n + lane];
+    M.at(OFF_LENS + wi) = ld(M.ck, SITE_CARRY, lens + (wi * n + lane),
+                             lens + lane, wi, LENS_WORDS, n);
   fill_lut<1>(M, count, first, offs);
   fill_lut<2>(M, count, first, offs);
   M.open(L.bitpos >> 5);
+#ifdef DEFL_CHECKED
+  // the injected "uninit" fault: the write of the ring word that the
+  // first step reads is forgotten
+  if (M.ck.inject == SITE_UNINIT) {
+    M.ck.forget(OFF_RING + ((L.bitpos >> 5) & 7));
+    M.ck.inject = 0;
+  }
+#endif
 
   int k = 0, rows = 0, builds = 0, sorted = 0, stored = 0;
   uint32_t* slot0 = tok + lane;  // the step's first token slot
@@ -925,10 +1136,11 @@ __device__ __forceinline__ void stream_lane(
       uint32_t t1, t2;
       fixed_point = step(L, M, has_dict, t1, t2);
       if (t1 != 0) {  // the buffer arrives zero-filled: NOPs are not stored
-        slot0[0] = t1;
+        st(M.ck, SITE_TOKEN, slot0, tok + lane, 2 * k, 2 * n_steps, n, t1);
         ++stored;
         if (t2 != 0) {
-          slot0[n] = t2;
+          st(M.ck, SITE_TOKEN, slot0 + n, tok + lane, 2 * k + 1, 2 * n_steps,
+             n, t2);
           ++stored;
         }
         rows = 2 * k + 2;
@@ -940,9 +1152,10 @@ __device__ __forceinline__ void stream_lane(
     if (fixed_point) break;
   }
 
-  L.store_state(st + lane, n);
+  L.store_state(st_rows + lane, n, M.ck);
   for (int wi = 0; wi < LENS_WORDS; ++wi)
-    lens[wi * n + lane] = M.at(OFF_LENS + wi);
+    st(M.ck, SITE_CARRY, lens + (wi * n + lane), lens + lane, wi, LENS_WORDS,
+       n, (uint32_t)M.at(OFF_LENS + wi));
   if (builds > 0) {
     for (int q = 0; q < SYMS_WORDS; q += 4) {
       uint4 v;
@@ -950,37 +1163,50 @@ __device__ __forceinline__ void stream_lane(
       v.y = M.at(OFF_SYMS + q + 1);
       v.z = M.at(OFF_SYMS + q + 2);
       v.w = M.at(OFF_SYMS + q + 3);
-      reinterpret_cast<uint4*>(syms)[q >> 2] = v;
+      uint4* vs = reinterpret_cast<uint4*>(syms);
+      st(M.ck, SITE_CARRY, vs + (q >> 2), vs, q >> 2, SYMS_WORDS / 4, 1, v);
     }
-    atomicAdd(meta + M_BUILDS, (meta_t)builds);
-    atomicAdd(meta + M_SORTED, (meta_t)sorted);
-    atomicAdd(meta + M_BUILD_CYCLES, (meta_t)t_build);
+    if (M.ck.meta(M_BUILDS))
+      atomicAdd(meta + M_BUILDS, (meta_t)builds);
+    if (M.ck.meta(M_SORTED))
+      atomicAdd(meta + M_SORTED, (meta_t)sorted);
+    if (M.ck.meta(M_BUILD_CYCLES))
+      atomicAdd(meta + M_BUILD_CYCLES, (meta_t)t_build);
   }
-  atomicMax(meta + M_ROWS, (meta_t)rows);
-  atomicAdd(meta + M_STEPS, (meta_t)k);
-  atomicAdd(meta + M_TOKENS, (meta_t)stored);
-  atomicAdd(meta + M_LANE_CYCLES, (meta_t)(clock64() - t_start));
+  if (M.ck.meta(M_ROWS))
+    atomicMax(meta + M_ROWS, (meta_t)rows);
+  if (M.ck.meta(M_STEPS))
+    atomicAdd(meta + M_STEPS, (meta_t)k);
+  if (M.ck.meta(M_TOKENS))
+    atomicAdd(meta + M_TOKENS, (meta_t)stored);
+  if (M.ck.meta(M_LANE_CYCLES))
+    atomicAdd(meta + M_LANE_CYCLES, (meta_t)(clock64() - t_start));
 }
 
 // ---- one lane of decode_chunk -----------------------------------------------
 
 __device__ __forceinline__ void chunk_lane(
-    int lane, int32_t* st, uint32_t* lens, const uint32_t* words,
+    int lane, int32_t* st_rows, uint32_t* lens, const uint32_t* words,
     size_t row_stride, int W, int vec, const int32_t* bound, const int32_t* adjoff,
     const int32_t* maxlen, const uint32_t* syms, uint32_t* tok, int N, int K,
-    int has_dict) {
+    int has_dict, Chk ck) {
   const size_t n = (size_t)N;
   Lane L;
-  L.load_state(st + lane, n);
+  L.load_state(st_rows + lane, n, ck);
   ChunkMem M;
+  M.ck = ck;
   M.adjoff = adjoff + lane;
   M.syms = syms + lane;
   M.lens_pk = lens + lane;
   M.n = n;
 #pragma unroll
-  for (int i = 0; i < 48; ++i) M.bnd[i] = bound[i * n + lane];
+  for (int i = 0; i < 48; ++i)
+    M.bnd[i] = ld(M.ck, SITE_CARRY, bound + (i * n + lane), bound + lane, i,
+                  TABLE_ROWS, n);
 #pragma unroll
-  for (int i = 0; i < 3; ++i) M.mlen[i] = maxlen[i * n + lane];
+  for (int i = 0; i < 3; ++i)
+    M.mlen[i] = ld(M.ck, SITE_CARRY, maxlen + (i * n + lane), maxlen + lane, i,
+                   3, n);
   M.in = Row{words + (size_t)lane * row_stride, W, vec != 0};
   M.open(L.bitpos >> 5);
 
@@ -988,16 +1214,20 @@ __device__ __forceinline__ void chunk_lane(
   while (k < K) {
     uint32_t t1, t2;
     const bool fixed_point = step(L, M, has_dict, t1, t2);
-    tok[(size_t)(2 * k) * n + lane] = t1;
-    tok[(size_t)(2 * k + 1) * n + lane] = t2;
+    st(M.ck, SITE_TOKEN, tok + ((size_t)(2 * k) * n + lane), tok + lane, 2 * k,
+       2 * K, n, t1);
+    st(M.ck, SITE_TOKEN, tok + ((size_t)(2 * k + 1) * n + lane), tok + lane,
+       2 * k + 1, 2 * K, n, t2);
     ++k;
     if (fixed_point) break;  // nothing changes until the next chunk
   }
   for (; k < K; ++k) {  // this entry owns every slot of its chunk
-    tok[(size_t)(2 * k) * n + lane] = 0;
-    tok[(size_t)(2 * k + 1) * n + lane] = 0;
+    st(M.ck, SITE_TOKEN, tok + ((size_t)(2 * k) * n + lane), tok + lane, 2 * k,
+       2 * K, n, 0u);
+    st(M.ck, SITE_TOKEN, tok + ((size_t)(2 * k + 1) * n + lane), tok + lane,
+       2 * k + 1, 2 * K, n, 0u);
   }
-  L.store_state(st + lane, n);
+  L.store_state(st_rows + lane, n, M.ck);
 }
 
 #ifdef __CUDACC__
@@ -1010,7 +1240,12 @@ __global__ void __launch_bounds__(256) decode_stream_kernel(
     size_t row_stride, int W, int vec, uint32_t* __restrict__ tok,
     meta_t* __restrict__ meta,
     const int32_t* __restrict__ order, int N, int n_steps, int has_dict,
-    int lanes_per_warp) {
+    int lanes_per_warp
+#ifdef DEFL_CHECKED
+    , fault_t* __restrict__ fault, uint32_t* __restrict__ shadow,
+    int meta_words, int inject_site, int inject_lane
+#endif
+    ) {
   extern __shared__ uint32_t smem[];
   // the first lanes_per_warp threads of each warp own a lane each; order
   // says which: the caller puts lanes with alike work side by side
@@ -1019,10 +1254,22 @@ __global__ void __launch_bounds__(256) decode_stream_kernel(
   const int lanes = (blockDim.x >> 5) * lanes_per_warp;
   const int slot = (threadIdx.x >> 5) * lanes_per_warp + t;
   if (blockIdx.x * lanes + slot >= N) return;
+#ifdef DEFL_CHECKED
+  Chk ck{{fault, -1, (int)blockIdx.x, slot, 0}, nullptr, smem, lanes,
+         meta_words};
+  // the order's entries are the caller's: each must name a lane
   const int lane = order[blockIdx.x * lanes + slot];
+  if (!ck.in(SITE_CARRY, lane, N)) return;
+  ck.lane = lane;
+  ck.shadow = shadow + (size_t)lane * SHADOW_WORDS;
+  ck.inject = lane == inject_lane ? inject_site : 0;
+#else
+  const Chk ck{};
+  const int lane = order[blockIdx.x * lanes + slot];
+#endif
   stream_lane(smem, slot, lanes, lane, st, lens, count, first, offs, maxlen,
               syms, words, row_stride, W, vec, tok, meta, N, n_steps,
-              has_dict);
+              has_dict, ck);
 }
 
 __global__ void __launch_bounds__(THREADS) decode_chunk_kernel(
@@ -1030,11 +1277,22 @@ __global__ void __launch_bounds__(THREADS) decode_chunk_kernel(
     const uint32_t* __restrict__ words, size_t row_stride, int W, int vec,
     const int32_t* __restrict__ bound, const int32_t* __restrict__ adjoff,
     const int32_t* __restrict__ maxlen, const uint32_t* __restrict__ syms,
-    uint32_t* __restrict__ tok, int N, int K, int has_dict) {
+    uint32_t* __restrict__ tok, int N, int K, int has_dict
+#ifdef DEFL_CHECKED
+    , fault_t* __restrict__ fault, int inject_site, int inject_lane
+#endif
+    ) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= N) return;
+#ifdef DEFL_CHECKED
+  const Chk ck{{fault, lane, (int)blockIdx.x, (int)threadIdx.x,
+                lane == inject_lane ? inject_site : 0},
+               nullptr, nullptr, 0, 0};
+#else
+  const Chk ck{};
+#endif
   chunk_lane(lane, st, lens, words, row_stride, W, vec, bound, adjoff, maxlen,
-             syms, tok, N, K, has_dict);
+             syms, tok, N, K, has_dict, ck);
 }
 
 // 16-byte loads need rows that start on 16-byte boundaries
@@ -1084,12 +1342,19 @@ struct DeviceScope {
 // most 256); the first `lanes_per_warp` of each warp own a lane, and a
 // block's lanes share LANE_BYTES each of dynamic shared memory.  words is
 // [N, W] with `shared` 0, or one body [W] that every lane reads with
-// `shared` 1.
+// `shared` 1.  The checked build also takes the fault record [FAULT_WORDS]
+// and the shadows [N, SHADOW_WORDS], both zeroed, meta's words, and the
+// site and lane of one injected fault (inject_site 0: none).
 extern "C" int decode_stream_launch(
     void* st, void* lens, void* count, void* first, void* offs, void* maxlen,
     void* syms, const void* words, int W, int shared, void* tok, void* meta,
     const void* order, int N, int n_steps, int has_dict, int threads,
-    int lanes_per_warp, void* stream, int device) {
+    int lanes_per_warp, void* stream, int device
+#ifdef DEFL_CHECKED
+    , void* fault, void* shadow, int meta_words, int inject_site,
+    int inject_lane
+#endif
+    ) {
   DeviceScope scope(device);
   cudaError_t err = scope.err;
   if (err != cudaSuccess) return (int)err;
@@ -1114,7 +1379,12 @@ extern "C" int decode_stream_launch(
       (int32_t*)offs, (int32_t*)maxlen, (uint32_t*)syms,
       (const uint32_t*)words, shared ? (size_t)0 : (size_t)W, W,
       rows_vectorise(words, W), (uint32_t*)tok, (meta_t*)meta, (const int32_t*)order, N, n_steps, has_dict,
-      lanes_per_warp);
+      lanes_per_warp
+#ifdef DEFL_CHECKED
+      , (fault_t*)fault, (uint32_t*)shadow, meta_words, inject_site,
+      inject_lane
+#endif
+      );
   return (int)cudaGetLastError();
 }
 
@@ -1122,7 +1392,12 @@ extern "C" int decode_chunk_launch(void* st, void* lens, const void* words,
                                    int W, int shared, const void* bound,
                                    const void* adjoff, const void* maxlen,
                                    const void* syms, void* tok, int N, int K,
-                                   int has_dict, void* stream, int device) {
+                                   int has_dict, void* stream, int device
+#ifdef DEFL_CHECKED
+                                   , void* fault, int inject_site,
+                                   int inject_lane
+#endif
+                                   ) {
   DeviceScope scope(device);
   cudaError_t err = scope.err;
   if (err != cudaSuccess) return (int)err;
@@ -1133,7 +1408,11 @@ extern "C" int decode_chunk_launch(void* st, void* lens, const void* words,
       shared ? (size_t)0 : (size_t)W, W, rows_vectorise(words, W),
       (const int32_t*)bound,
       (const int32_t*)adjoff, (const int32_t*)maxlen, (const uint32_t*)syms,
-      (uint32_t*)tok, N, K, has_dict);
+      (uint32_t*)tok, N, K, has_dict
+#ifdef DEFL_CHECKED
+      , (fault_t*)fault, inject_site, inject_lane
+#endif
+      );
   return (int)cudaGetLastError();
 }
 

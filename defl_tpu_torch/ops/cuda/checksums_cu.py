@@ -5,6 +5,9 @@ Counterpart of ``defl_tpu/ops/pallas/checksums_pl.py``.
 on CUDA tensors and counts each launch in ``launches``; it refuses
 anything else.  The plain PyTorch version and the function that chooses
 between the two by where the tensors lie are in ``ops/checksums.py``.
+``checked=True`` launches the kernel's checked build (``build.load(
+checked=True)``), counted in ``checked_launches``: a read outside a lane's
+bytes or a store past N raises ``build.KernelFault``.
 """
 
 from __future__ import annotations
@@ -22,18 +25,23 @@ MAX_ROW_BYTES = 1 << 30
 #: shards on several cards launch from threads of their own, so the count
 #: is raised under a lock
 launches = 0
+#: launches of the checked build (``checked=True``)
+checked_launches = 0
 _count_lock = threading.Lock()
 
 
-def adler32_batch_cuda(data: torch.Tensor,
-                       lengths: torch.Tensor) -> torch.Tensor:
+def adler32_batch_cuda(data: torch.Tensor, lengths: torch.Tensor, *,
+                       checked: bool = False,
+                       inject=None) -> torch.Tensor:
     """data: uint8 [N, C] on a CUDA device, unit stride along a row (rows
     may be a slice of a wider buffer, at any alignment); lengths: int32
     [N] on the same device, clipped to [0, C] by the kernel.  Returns
     int32 [N] holding the u32 checksum bits ``(B << 16) | A``.
 
     Launches on the current stream of ``data``'s device and does not
-    synchronise.
+    synchronise, unless ``checked``: the checked build syncs to read its
+    fault record.  ``inject=("adler32", lane)`` makes that lane's first
+    access leave its extent (a checked launch).
     """
     if data.device.type != "cuda":
         raise ValueError(f"adler32_batch_cuda takes CUDA tensors, data is "
@@ -62,17 +70,32 @@ def adler32_batch_cuda(data: torch.Tensor,
         return out
     from defl_tpu_torch.ops.cuda import build
 
-    lib = build.load()
+    checked = bool(checked or inject)
+    lib = build.load(checked)
     dev = data.device
+    extra = ()
+    if checked:
+        site, lane = inject or ("adler32", -1)
+        if site != "adler32":
+            raise ValueError(f"the adler32 kernel has one site, 'adler32', "
+                             f"not {site!r}")
+        fault = torch.zeros(build.FAULT_WORDS, dtype=torch.int64, device=dev)
+        extra = (fault.data_ptr(), int(lane))
     rc = lib.adler32_batch_launch(
         data.data_ptr(), data.stride(0) if N > 1 else C, N, C,
         lengths.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
-        dev.index if dev.index is not None else torch.cuda.current_device())
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        *extra)
     if rc != 0:
         raise RuntimeError(f"adler32_batch kernel launch failed: CUDA error "
                            f"{rc}")
-    global launches
+    global launches, checked_launches
     with _count_lock:
-        launches += 1
+        if checked:
+            checked_launches += 1
+        else:
+            launches += 1
+    if checked:
+        build.raise_fault("adler32_batch", fault.tolist())
     return out

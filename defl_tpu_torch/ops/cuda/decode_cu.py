@@ -16,10 +16,24 @@ Counterpart of ``defl_tpu/ops/pallas/decode_pl.py``.  The source
   chunk kernel for CUDA tensors (counted in ``chunk_launches``), the twin
   ``decode_chunk_ref`` for CPU tensors.  The two agree bit for bit, slot
   for slot: tokens, state rows and lens.
+- ``checked=True`` on either (CUDA tensors only) launches the checked
+  build of the same source (``build.load(checked=True)``): every access
+  checked against its extent, the stream kernel's shared memory also
+  against a shadow of what the launch wrote; a fault raises
+  ``build.KernelFault`` after the call's sync.  ``inject=(site, lane)``
+  makes that lane take one access out of its extent at ``site`` (a name
+  of ``build.SITES``), so that a caller can see each check fire.  Checked
+  launches are counted in ``checked_launches`` and
+  ``checked_chunk_launches``, never in the counts above; no entry point
+  of the port passes ``checked``.
 - ``compare_decodes`` says whether two complete decodes are equal: per
   lane the same end state, the same tokens in order, and for a resumable
   lane the same tables.  Token slots may differ (a lane of the chunk loop
   idles while it waits for a build), so tokens are compacted first.
+  ``identical_decodes`` holds two stream decodes bit for bit, slots and
+  totals too (a checked launch against the unchecked one).
+- ``stream_order`` is the order in which the stream kernel's threads take
+  the lanes, so a caller can tell which block and slot a lane runs in.
 
 Kernel-facing layout (all int32; lane-minor rows so that a warp's loads
 of one row coalesce, lane-major where the kernel reads a lane's row as a
@@ -63,6 +77,7 @@ from defl_tpu_torch.ops import inflate_batch as ib
 from defl_tpu_torch.ops import tables
 from defl_tpu_torch.ops.bitio import (bitrev16, extract, i32_to_u32, peek32,
                                       u32_to_i32)
+from defl_tpu_torch.ops.cuda import build
 from defl_tpu_torch.ops.inflate_batch import (
     S_BHDR, S_CLEN_HDR, S_CLEN_LENS, S_DICTID, S_DONE, S_ERR, S_FULL,
     S_LENS, S_STORED, S_STORED_HDR, S_STORED_LEN, S_SYM, S_WAIT, S_ZHDR,
@@ -87,6 +102,9 @@ PAD_WORDS = 8
 #: under a lock, since the shards of a sharded decode launch from threads
 launches = 0
 chunk_launches = 0
+#: launches of the checked builds of the two kernels (``checked=True``)
+checked_launches = 0
+checked_chunk_launches = 0
 _count_lock = threading.Lock()
 #: the stream kernel's block (threads) and how many threads of each warp
 #: own a lane; a block's lanes share its shared memory
@@ -94,6 +112,9 @@ STREAM_THREADS = 128
 STREAM_LANES_PER_WARP = 8
 #: int64 words of a stream launch's totals, read with the call's one sync
 META_WORDS = 8
+#: int32 words of a lane's shadow in the checked stream kernel: one bit per
+#: shared word and lookup entry (csrc/decode_stream.cu SHADOW_WORDS)
+SHADOW_WORDS = 49
 
 _OK, _ERR, _UNF, _EFULL = (int(Result.OK), int(Result.ERR),
                            int(Result.UNFINISHED), int(Result.EFULL))
@@ -134,40 +155,55 @@ def _check(st_pk, lens_pk, words, bound, adjoff, maxlen, syms, tok_out, K):
 
 
 def decode_chunk(st_pk, lens_pk, words, bound, adjoff, maxlen, syms,
-                 tok_out=None, *, K: int, has_dict: bool = False):
+                 tok_out=None, *, K: int, has_dict: bool = False,
+                 checked: bool = False, inject=None):
     """One K-step chunk over all lanes (≙ decode_chunk_pl, whose static
     ``dict_len`` rides here per lane in row R_REACH).  Returns (tok [2K,
     N], st_pk, lens_pk); st_pk and lens_pk are updated in place, tokens
     land in ``tok_out`` (allocated when None).
 
     CUDA tensors launch the kernel (or raise); CPU tensors run the twin.
+    ``checked``/``inject``: the checked build (module doc); it syncs to
+    read its fault record.
     """
     _check(st_pk, lens_pk, words, bound, adjoff, maxlen, syms, tok_out, K)
     dev = st_pk.device
+    if (checked or inject) and dev.type != "cuda":
+        raise ValueError("the checked build runs on a CUDA card only")
     if dev.type == "cpu":
         return decode_chunk_ref(st_pk, lens_pk, words, bound, adjoff, maxlen,
                                 syms, tok_out, K=K, has_dict=has_dict)
     if dev.type != "cuda":
         raise ValueError(f"decode_chunk runs on cuda or cpu, not {dev}")
-    from defl_tpu_torch.ops.cuda import build
-
-    lib = build.load()
+    checked = bool(checked or inject)
+    lib = build.load(checked)
     N = st_pk.shape[1]
     if tok_out is None:
         tok_out = torch.empty((2 * K, N), dtype=torch.int32, device=dev)
+    extra = ()
+    if checked:
+        fault = torch.zeros(build.FAULT_WORDS, dtype=torch.int64, device=dev)
+        site, lane = inject or (None, -1)
+        extra = (fault.data_ptr(), build.site_id(site), int(lane))
     rc = lib.decode_chunk_launch(
         st_pk.data_ptr(), lens_pk.data_ptr(), words.data_ptr(),
         words.shape[1], int(words.shape[0] != N), bound.data_ptr(),
         adjoff.data_ptr(),
         maxlen.data_ptr(), syms.data_ptr(), tok_out.data_ptr(), N, K,
         int(bool(has_dict)), torch.cuda.current_stream(dev).cuda_stream,
-        dev.index if dev.index is not None else torch.cuda.current_device())
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        *extra)
     if rc != 0:
         raise RuntimeError(f"decode_chunk kernel launch failed: CUDA error "
                            f"{rc}")
-    global chunk_launches
+    global chunk_launches, checked_chunk_launches
     with _count_lock:
-        chunk_launches += 1
+        if checked:
+            checked_chunk_launches += 1
+        else:
+            chunk_launches += 1
+    if checked:
+        build.raise_fault("decode_chunk", fault.tolist())
     return tok_out, st_pk, lens_pk
 
 
@@ -586,12 +622,14 @@ def _unpack_state(st, st_pk, lens):
 # ---------------------------------------------------------------------------
 
 def _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words,
-                   tok, meta, order, n_steps, has_dict):
+                   tok, meta, order, n_steps, has_dict, check=None):
     """Launch the stream kernel on tensors this call owns, at the launch
     shape ``STREAM_THREADS`` x ``STREAM_LANES_PER_WARP``; raise when the
-    card refuses the launch.  Every launch adds one to ``launches``."""
-    from defl_tpu_torch.ops.cuda import build
+    card refuses the launch.  Every launch adds one to ``launches``.
 
+    ``check``: (fault [FAULT_WORDS] int64, shadow [N, SHADOW_WORDS] int32,
+    both zeroed, injected site id, injected lane) launches the checked
+    build instead, counted in ``checked_launches``."""
     dev = st_pk.device
     N = st_pk.shape[1]
     want = {"st_pk": (st_pk, (NROWS, N)), "lens": (lens, (ib.LENS_WORDS, N)),
@@ -601,17 +639,24 @@ def _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words,
             "words": (words, (_words_rows(words, N), words.shape[-1])),
             "tok": (tok, (2 * n_steps, N)), "meta": (meta, (META_WORDS,)),
             "order": (order, (N,))}
+    extra = ()
+    if check is not None:
+        fault, shadow, site, lane = check
+        want.update(fault=(fault, (build.FAULT_WORDS,)),
+                    shadow=(shadow, (N, SHADOW_WORDS)))
+        extra = (fault.data_ptr(), shadow.data_ptr(), meta.numel(),
+                 int(site), int(lane))
     for name, (t, shape) in want.items():
         if t.device != dev or dev.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the stream kernel "
                              f"takes tensors of one CUDA device")
-        dtype = torch.int64 if name == "meta" else torch.int32
+        dtype = torch.int64 if name in ("meta", "fault") else torch.int32
         if t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous {dtype} {shape}, "
                              f"got {t.dtype} {tuple(t.shape)}")
     threads, lanes_per_warp = STREAM_THREADS, STREAM_LANES_PER_WARP
-    rc = build.load().decode_stream_launch(
+    rc = build.load(check is not None).decode_stream_launch(
         st_pk.data_ptr(), lens.data_ptr(), count.data_ptr(),
         first.data_ptr(), offs.data_ptr(), maxlen.data_ptr(),
         syms.data_ptr(), words.data_ptr(), words.shape[1],
@@ -619,18 +664,23 @@ def _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words,
         order.data_ptr(), N,
         n_steps, int(bool(has_dict)), int(threads), int(lanes_per_warp),
         torch.cuda.current_stream(dev).cuda_stream,
-        dev.index if dev.index is not None else torch.cuda.current_device())
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        *extra)
     if rc != 0:
         raise RuntimeError(f"decode_stream kernel launch failed: CUDA error "
                            f"{rc} ({threads} threads a block, "
                            f"{lanes_per_warp} lanes a warp)")
-    global launches
+    global launches, checked_launches
     with _count_lock:
-        launches += 1
+        if check is None:
+            launches += 1
+        else:
+            checked_launches += 1
 
 
 def _read_meta(meta):
-    """The call's one sync with the host: the launch's totals."""
+    """The call's one sync with the host: the launch's totals (and, behind
+    them, a checked launch's fault record)."""
     return meta.tolist()
 
 
@@ -645,14 +695,37 @@ def pad_body(body: np.ndarray) -> np.ndarray:
     return out
 
 
+def stream_order(nbits, limit=None, bitpos=None, running=None):
+    """The order in which the stream kernel's threads take the lanes (its
+    ``order``): by the input bits each lane has left, most first, ties in
+    lane order, lanes not ``running`` last.  A warp's lanes then have alike
+    work (and alike data), so they branch alike and end together, and the
+    longest lanes start first.  A lane of a split decode ends at its
+    ``limit``, not at the shared body's end.  All [N], tensors or arrays;
+    a fresh carry's ``bitpos`` is its start bit.  Returns int32 [N] on
+    ``nbits``' device (the CPU for an array)."""
+    dev = nbits.device if torch.is_tensor(nbits) else None
+    lanes = lambda x: x.to(dev, torch.int64) if torch.is_tensor(x) else \
+        torch.as_tensor(np.asarray(x, np.int64), device=dev)
+    left = lanes(nbits)
+    if limit is not None:
+        left = torch.minimum(left, lanes(limit))
+    if bitpos is not None:
+        left = left - lanes(bitpos)
+    if running is not None:
+        left = torch.where(lanes(running) != 0, left, -1)
+    return torch.argsort(left, descending=True, stable=True).to(torch.int32)
+
+
 def _decode_stream(words, nbits, cap, limit, dict_reach, in_base, st, ck,
-                   n_steps, has_dict):
+                   n_steps, has_dict, checked=False, inject=None):
     """One decode on the card: pack the carry once, one launch, one sync.
 
     The carry it returns also holds ``stream_stats``, the launch's totals
     over all lanes: token rows used, steps run, tokens stored, table
     builds, symbols the builds sorted, and the builds' share of the lanes'
-    cycles."""
+    cycles.  ``checked``/``inject``: the checked build, whose fault record
+    is read with the totals and raised (module doc)."""
     dev = words.device
     st_pk, lens = _pack_state(st, nbits, cap, limit, dict_reach, in_base)
     own = lambda t: t.to(torch.int32, copy=True).contiguous()
@@ -662,18 +735,25 @@ def _decode_stream(words, nbits, cap, limit, dict_reach, in_base, st, ck,
     # zero-filled here; the kernel stores real tokens only
     tok = torch.zeros((2 * n_steps, nbits.shape[0]), dtype=torch.int32,
                       device=dev)
-    meta = torch.zeros(META_WORDS, dtype=torch.int64, device=dev)
-    # threads take the lanes by the input they have left, most first: a
-    # warp's lanes then have alike work (and alike data), so they branch
-    # alike and end together, and the longest lanes start first.  A lane
-    # of a split decode ends at its limit, not at the shared body's end
-    left = torch.where(st_pk[R_STATUS] == ib.STATUS_RUNNING,
-                       torch.minimum(limit, nbits) - st_pk[R_BITPOS], -1)
-    order = torch.argsort(left, descending=True, stable=True).to(torch.int32)
+    checked = bool(checked or inject)
+    fault_words = build.FAULT_WORDS if checked else 0
+    meta = torch.zeros(META_WORDS + fault_words, dtype=torch.int64,
+                       device=dev)
+    order = stream_order(nbits, limit, st_pk[R_BITPOS],
+                         st_pk[R_STATUS] == ib.STATUS_RUNNING)
+    check = None
+    if checked:
+        site, lane = inject or (None, -1)
+        shadow = torch.zeros((nbits.shape[0], SHADOW_WORDS),
+                             dtype=torch.int32, device=dev)
+        check = (meta[META_WORDS:], shadow, build.site_id(site), lane)
     _launch_stream(st_pk, lens, count, first, offs, maxlen, syms, words, tok,
-                   meta, order, n_steps, has_dict)
+                   meta[:META_WORDS], order, n_steps, has_dict, check=check)
+    totals = _read_meta(meta)
+    if checked:
+        build.raise_fault("decode_stream", totals[META_WORDS:])
     (rows, steps, builds, sorted_syms, t_build, t_lanes,
-     stored) = _read_meta(meta)[:7]
+     stored) = totals[:7]
     stats = {"tok_rows": rows, "steps": steps, "tokens": stored,
              "builds": builds, "sorted_symbols": sorted_syms,
              "build_share": t_build / t_lanes if t_lanes else 0.0}
@@ -691,7 +771,7 @@ def decode_tokens(words, nbits, zflag, cap, *, T: int, K: int | None = None,
                   dict_len: int = 0, has_dict: bool = False, carry=None,
                   limit=None, start_bit=None, dict_reach=None,
                   shared_input: bool = False, in_base=None, device=None,
-                  _chunk=None):
+                  checked: bool = False, inject=None, _chunk=None):
     """Run the decoder for up to max(K, T // 2) steps a lane (≙
     decode_tokens_pl).
 
@@ -722,7 +802,9 @@ def decode_tokens(words, nbits, zflag, cap, *, T: int, K: int | None = None,
     batched table builds, one ``_chunk`` call of K steps and one host sync
     (``ib._chunk_gate``); a lane that waits for a build idles meanwhile.
     K defaults to 512 on CUDA and 128 on the CPU, where the twin pays for
-    every step whether or not a lane still works.
+    every step whether or not a lane still works.  ``checked`` and
+    ``inject`` launch the stream kernel's checked build (module doc): on
+    CUDA only, and not with ``_chunk``.
     """
     if isinstance(words, np.ndarray):
         words = np.ascontiguousarray(words)
@@ -763,9 +845,12 @@ def decode_tokens(words, nbits, zflag, cap, *, T: int, K: int | None = None,
         ck = {k: carry[k] for k in ib.CHUNK_KEYS}
 
     n_steps = max(K, T // 2)
+    if (checked or inject) and (_chunk is not None or dev.type != "cuda"):
+        raise ValueError("the checked build is the stream kernel's, on a "
+                         "CUDA card")
     if _chunk is None and dev.type == "cuda":
         return _decode_stream(words, nbits, cap, limit, dict_reach, in_base,
-                              st, ck, n_steps, has_dict)
+                              st, ck, n_steps, has_dict, checked, inject)
     if _chunk is None and dev.type != "cpu":
         raise ValueError(f"decode_tokens runs on cuda or cpu, not {dev}")
 
@@ -823,6 +908,38 @@ def select_lanes(run, lanes):
                v[:, idx] if k == "lens_pk" else v[idx])
            for k, v in carry.items()}
     return [(t[:rows, idx], rows) for t, rows in parts], out
+
+
+#: a stream decode's totals that do not count cycles
+_STATS_EXACT = ("tok_rows", "steps", "tokens", "builds", "sorted_symbols")
+
+
+def identical_decodes(a, b) -> list[str]:
+    """What differs between two stream decodes of the same inputs that must
+    agree bit for bit, such as a checked launch and the unchecked one: an
+    empty list when nothing does.
+
+    a, b: (parts, carry) as ``compare_decodes`` takes them.  Compared: each
+    call's token rows up to its ``tok_rows``, every tensor of the last
+    carry (state rows, lens, count/first/offs/maxlen/syms) and its totals
+    but the clock's."""
+    (pa, ca), (pb, cb) = a, b
+    if torch.is_tensor(pa):
+        pa, pb = [(pa, ca["tok_rows"])], [(pb, cb["tok_rows"])]
+    differ = []
+    if [r for _, r in pa] != [r for _, r in pb]:
+        differ.append("tok_rows")
+    elif not all(torch.equal(ta[:r], tb[:r])
+                 for (ta, r), (tb, _) in zip(pa, pb)):
+        differ.append("tokens")
+    if ca.keys() != cb.keys():
+        differ.append("carry keys")
+    differ += [k for k, v in ca.items() if torch.is_tensor(v)
+               and not (torch.is_tensor(cb.get(k)) and torch.equal(v, cb[k]))]
+    sa, sb = ca.get("stream_stats", {}), cb.get("stream_stats", {})
+    differ += [f"stream_stats.{k}" for k in _STATS_EXACT
+               if sa.get(k) != sb.get(k)]
+    return differ
 
 
 def compare_decodes(a, b, lanes=None) -> int:

@@ -6,8 +6,13 @@ load it under a sanitizer's runtime).
 the shim defines; it runs the lanes one after the other.  ``build`` makes
 the library with g++ (``sanitize=True``: AddressSanitizer and
 UndefinedBehaviorSanitizer, every lane in its own allocation of exactly
-its shared memory); ``_host_stream`` and ``_host_split_decode`` put it in
-place of the stream kernel's launch inside ``decode_cu``.
+its shared memory; ``checked=True``: the source's checked build,
+``-DDEFL_CHECKED``, whose entry takes the fault record, the shadows and
+one injected fault); ``_host_stream`` and ``_host_split_decode`` put it in
+place of the stream kernel's launch inside ``decode_cu``.  Without
+``SMEM_PER_LANE`` the lanes share one block allocation filled with junk,
+``lanes`` of them, the i-th lane of the order in slot ``i % lanes``, as a
+block's lanes share it on the card.
 """
 
 import ctypes
@@ -53,12 +58,16 @@ static inline u64 atomicAdd(u64* p, u64 v) { u64 o = *p; *p += v; return o; }
 static inline u64 atomicMax(u64* p, u64 v) {
   u64 o = *p; *p = std::max(o, v); return o;
 }
+static inline u64 atomicCAS(u64* p, u64 cmp, u64 v) {
+  u64 o = *p; if (o == cmp) *p = v; return o;
+}
 #include "decode_stream.cu"
 
 static int vectorise(const void* words, int W) {
   return (W & 3) == 0 && (reinterpret_cast<uintptr_t>(words) & 15) == 0;
 }
 
+#ifndef DEFL_CHECKED
 // one "thread" after the other: no lane reads another lane's shared words
 extern "C" void decode_stream_host(
     int32_t* st, uint32_t* lens, int32_t* count, int32_t* first,
@@ -72,14 +81,14 @@ extern "C" void decode_stream_host(
     std::vector<uint32_t> smem(LANE_BYTES / 4, 0xDEADBEEFu);
     stream_lane(smem.data(), 0, 1, order[i], st, lens, count, first, offs,
                 maxlen, syms, words, shared ? 0 : (size_t)W, W,
-                vectorise(words, W), tok, meta, N, n_steps, has_dict);
+                vectorise(words, W), tok, meta, N, n_steps, has_dict, Chk{});
   }
 #else
   std::vector<uint32_t> smem((size_t)LANE_BYTES * lanes / 4 + 1, 0xDEADBEEFu);
   for (int i = 0; i < N; ++i)
     stream_lane(smem.data(), i % lanes, lanes, order[i], st, lens, count,
                 first, offs, maxlen, syms, words, shared ? 0 : (size_t)W, W,
-                vectorise(words, W), tok, meta, N, n_steps, has_dict);
+                vectorise(words, W), tok, meta, N, n_steps, has_dict, Chk{});
 #endif
 }
 
@@ -90,24 +99,48 @@ extern "C" void decode_chunk_host(
   for (int lane = 0; lane < N; ++lane)
     chunk_lane(lane, st, lens, words, shared ? 0 : (size_t)W, W,
                vectorise(words, W), bound, adjoff, maxlen, syms, tok, N, K,
-               has_dict);
+               has_dict, Chk{});
 }
+#else
+// the checked build, in the card's layout: lane order[i] in slot i % lanes
+// of block i / lanes, its shadow zeroed by the caller
+extern "C" void decode_stream_host_checked(
+    int32_t* st, uint32_t* lens, int32_t* count, int32_t* first,
+    int32_t* offs, int32_t* maxlen, uint32_t* syms, const uint32_t* words,
+    int W, int shared, uint32_t* tok, u64* meta, const int32_t* order, int N,
+    int n_steps, int has_dict, int lanes, u64* fault, uint32_t* shadow,
+    int meta_words, int inject_site, int inject_lane) {
+  std::vector<uint32_t> smem((size_t)LANE_BYTES * lanes / 4 + 1, 0xDEADBEEFu);
+  for (int i = 0; i < N; ++i) {
+    const int lane = order[i];
+    const Chk ck{{fault, lane, i / lanes, i % lanes,
+                  lane == inject_lane ? inject_site : 0},
+                 shadow + (size_t)lane * SHADOW_WORDS, smem.data(), lanes,
+                 meta_words};
+    stream_lane(smem.data(), i % lanes, lanes, lane, st, lens, count, first,
+                offs, maxlen, syms, words, shared ? 0 : (size_t)W, W,
+                vectorise(words, W), tok, meta, N, n_steps, has_dict, ck);
+  }
+}
+#endif
 """
 
 
-def build(directory, sanitize: bool = False):
-    """g++ the shim into ``directory``; the loaded library (with
+def build(directory, sanitize: bool = False, checked: bool = False):
+    """g++ the shim into ``directory``; the path of the library (with
     ``sanitize``, load it only where the sanitizers' runtime is preloaded:
-    see tests/test_torch_fuzz_asan.py)."""
+    see tests/test_torch_fuzz_asan.py; with ``checked``, the checked build:
+    its entry is ``decode_stream_host_checked``)."""
     src = os.path.join(str(directory), "host.cc")
     with open(src, "w") as f:
         f.write(_HOST_SHIM)
-    name = "libdecode_stream_host_asan.so" if sanitize else \
-        "libdecode_stream_host.so"
+    name = "libdecode_stream_host{}{}.so".format(
+        "_asan" if sanitize else "", "_checked" if checked else "")
     lib = os.path.join(str(directory), name)
     r = subprocess.run(
         ["g++", "-O1", "-std=c++17", "-shared", "-fPIC",
          "-Wno-unknown-pragmas", *(SANITIZE_FLAGS if sanitize else ()),
+         *(("-DDEFL_CHECKED",) if checked else ()),
          "-I", os.path.dirname(CU), "-o", lib, src],
         capture_output=True, text=True)
     if r.returncode:
@@ -122,11 +155,14 @@ def _ptr(t, dtype=torch.int32):
 
 def _host_stream(lib, monkeypatch, threads=4):
     """decode_tokens with the stream kernel's launch replaced by the host
-    build: everything around the launch is the CUDA route's own code."""
+    build: everything around the launch is the CUDA route's own code.
+    ``threads``: the lanes that share one block allocation (not with
+    ``SMEM_PER_LANE``).  A checked decode (``checked=``, ``inject=``) needs
+    the checked build."""
     def launch(st_pk, lens, count, first, offs, maxlen, syms, words, tok,
-               meta, order, n_steps, has_dict):
+               meta, order, n_steps, has_dict, check=None):
         assert sorted(order.tolist()) == list(range(st_pk.shape[1]))
-        lib.decode_stream_host(
+        args = (
             _ptr(st_pk), _ptr(lens), _ptr(count), _ptr(first), _ptr(offs),
             _ptr(maxlen), _ptr(syms), _ptr(words),
             ctypes.c_int(words.shape[1]),
@@ -134,6 +170,14 @@ def _host_stream(lib, monkeypatch, threads=4):
             _ptr(meta, torch.int64),
             _ptr(order), ctypes.c_int(st_pk.shape[1]), ctypes.c_int(n_steps),
             ctypes.c_int(int(has_dict)), ctypes.c_int(threads))
+        if check is None:
+            lib.decode_stream_host(*args)
+        else:
+            fault, shadow, site, lane = check
+            lib.decode_stream_host_checked(
+                *args, _ptr(fault, torch.int64), _ptr(shadow),
+                ctypes.c_int(meta.numel()), ctypes.c_int(site),
+                ctypes.c_int(lane))
 
     monkeypatch.setattr(decode_cu, "_launch_stream", launch)
 
@@ -156,14 +200,16 @@ def _host_stream(lib, monkeypatch, threads=4):
         full = lambda v: torch.full((n,), v, dtype=torch.int32)
         return decode_cu._decode_stream(
             w, nb, cp, full(1 << 30), full(kw.get("dict_len", 0)), full(0),
-            st, ck, max(kw["K"], T // 2), kw.get("has_dict", False))
+            st, ck, max(kw["K"], T // 2), kw.get("has_dict", False),
+            kw.get("checked", False), kw.get("inject"))
     return decode
 
 
-def _host_split_decode(lib, monkeypatch, body, kw):
+def _host_split_decode(lib, monkeypatch, body, kw, threads=4,
+                       checked=False, inject=None):
     """The shared-input decode as the CUDA route runs it, its launch
     replaced by the host build."""
-    _host_stream(lib, monkeypatch)       # installs the launch
+    _host_stream(lib, monkeypatch, threads)       # installs the launch
     kw = dict(kw)
     n = len(kw["nbits"])
     as_t = lambda a: torch.as_tensor(np.asarray(a, np.int32))
@@ -175,4 +221,4 @@ def _host_split_decode(lib, monkeypatch, body, kw):
     return decode_cu._decode_stream(
         words[None, :], as_t(kw["nbits"]), as_t(kw["cap"]), as_t(kw["limit"]),
         as_t(kw["dict_reach"]), as_t(kw["in_base"]), st, ck,
-        max(512, kw["T"] // 2), False)
+        max(512, kw["T"] // 2), False, checked, inject)

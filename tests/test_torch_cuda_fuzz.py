@@ -19,6 +19,11 @@ lane must end in is the port oracle's, which tier-1 holds against
   resolvers (``malformed.run``): each lane its oracle class and bytes.
 - The split decode of the bench's 64 MiB stream with 16 bit flips and a
   cut tail: the host-parallel engine's class, in one launch.
+- The checked build (``checked=True``: every access checked against its
+  extent, shared memory also against a shadow of what the launch wrote)
+  on 64 lanes of a mixed batch: no fault, the unchecked launch's tokens,
+  carry and totals bit for bit; and one injected out-of-extent access,
+  which must raise with its site and lane.
 """
 
 import functools
@@ -153,6 +158,31 @@ def test_mixed_bench_batch_through_both_resolvers():
     assert rec["resolve_device"]["launches"]["adler32_batch"] >= 1
     assert rec["large"]["same"] and rec["large"]["route"] == "device"
     assert rec["ok"]
+
+
+def test_checked_build_on_64_lanes_of_the_mixed_batch():
+    from defl_tpu_torch.ops.cuda import build
+
+    blocks = corpus.make_silesia_like(64 * BLOCK, BLOCK)[:64]
+    streams = [zlib.compress(b, 6) for b in blocks]
+    mixed, _ = corpus.mixed_batch(streams, blocks, seed=11)
+    p = pack_streams(mixed, 1, BLOCK)
+    args = (torch.from_numpy(p.words.view(np.int32)).cuda(), p.nbits,
+            p.zflag, p.dst_cap)
+    T = ib.step_budget(BLOCK)
+    launches = (decode_cu.launches, decode_cu.checked_launches)
+    plain = decode_cu.decode_tokens(*args, T=T)
+    checked = decode_cu.decode_tokens(*args, T=T, checked=True)
+    assert (decode_cu.launches, decode_cu.checked_launches) == (
+        launches[0] + 1, launches[1] + 1)
+    assert decode_cu.identical_decodes(plain, checked) == []
+    # the lane in the middle slot of the second block of 32 lanes
+    lanes = decode_cu.STREAM_THREADS // 32 * decode_cu.STREAM_LANES_PER_WARP
+    lane = int(decode_cu.stream_order(p.nbits)[lanes + lanes // 2])
+    with pytest.raises(build.KernelFault) as e:
+        decode_cu.decode_tokens(*args, T=T, inject=("shared", lane))
+    assert (e.value.site, e.value.lane, e.value.block, e.value.slot) == (
+        "shared", lane, 1, lanes // 2)
 
 
 def test_split_decode_of_the_mutated_large64_stream():

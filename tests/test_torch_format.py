@@ -166,6 +166,6 @@ def test_chip_smoke_imports_only_the_port():
             roots.add(node.module.split(".")[0])
     assert "defl_tpu_torch" in roots
     assert not roots & {"defl_tpu", "jax", "jaxlib"}
-    assert roots <= {"__future__", "concurrent", "json", "os", "signal",
-                     "subprocess", "sys", "tempfile", "time", "zlib", "numpy",
-                     "torch", "defl_tpu_torch"}, roots
+    assert roots <= {"__future__", "concurrent", "json", "os", "re",
+                     "signal", "subprocess", "sys", "tempfile", "time", "zlib",
+                     "numpy", "torch", "defl_tpu_torch"}, roots
