@@ -177,7 +177,6 @@ def inflate_buffer(data, dst_capacity: int | None = None,
     if res is not Result.OK:
         raise DeflError(res, f"inflate failed after {len(out)} bytes")
     metrics.inc("inflate_buffer_calls")
-    metrics.inc("inflate_bytes_in", len(data))
     metrics.inc("inflate_bytes_out", len(out))
     return out
 

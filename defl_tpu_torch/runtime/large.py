@@ -51,7 +51,6 @@ Differences from the JAX module:
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -156,7 +155,8 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
       them.  ``seg_bytes`` and ``n_threads`` are its segment size and
       worker count.
 
-    stats_out (optional dict) receives ``route`` and per-stage seconds:
+    stats_out (optional dict) receives ``route`` and per-stage seconds,
+    each the length of its span ``defl.large.<stage>`` (``metrics.span``):
     ``parallel_s`` (host engine) or ``find_s``, ``upload_s`` (what was
     left of the body's upload after the find), ``decode_s``, ``fetch_s``,
     ``stitch_s`` with ``segments`` (of ``SEGMENT_BYTES``; under 3 the
@@ -208,7 +208,6 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
             f"or False for the host-parallel engine")
 
     metrics.inc("large_streams")
-    metrics.inc("large_bytes_in", len(data))
     if not use_device:
         st["route"] = "host_parallel"
         return _host_parallel(body, zf, flags, cap_total, grow, seg_bytes,
@@ -221,22 +220,22 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
         # nothing per lane ships to the device
         body_dev, side = _upload_body(body, dev)
 
-    t0 = time.perf_counter()
-    cands = _find_candidates(body, 0, n_seg, 8 * seg,
-                             native._default_threads()) \
-        if n_seg > 1 else [0]
-    st["find_s"] = time.perf_counter() - t0
+    with metrics.span("defl.large.find") as sp:
+        cands = _find_candidates(body, 0, n_seg, 8 * seg,
+                                 native._default_threads()) \
+            if n_seg > 1 else [0]
+    st["find_s"] = sp.s
 
     lane_info = None
     st["route"] = "serial"
     if body_dev is not None and len(cands) > 2:
         st["route"] = "device"
-        t0 = time.perf_counter()
-        if side is not None:
-            torch.cuda.current_stream(dev).wait_stream(side)
-            body_dev.record_stream(torch.cuda.current_stream(dev))
-            side.synchronize()
-        st["upload_s"] = time.perf_counter() - t0
+        with metrics.span("defl.large.upload") as sp:
+            if side is not None:
+                torch.cuda.current_stream(dev).wait_stream(side)
+                body_dev.record_stream(torch.cuda.current_stream(dev))
+                side.synchronize()
+        st["upload_s"] = sp.s
         lane_info = _device_decode(body_dev, body.size, cands, chunk_steps,
                                    st)
         # how many speculative lanes validated (status OK and ended
@@ -258,15 +257,16 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     # device_inflate): only the stitch depends on the output buffer, so a
     # high-ratio stream retries the stitch alone; the block find and the
     # device decode are reused.
-    t0 = time.perf_counter()
-    while True:
-        buf = out if caller_out else np.zeros(cap_total, np.uint8)
-        r, total, end_bit = _stitch(body, cands, lane_info, buf[:cap_total])
-        if r is Result.EFULL and grow and cap_total < (1 << 40):
-            cap_total *= 4
-            continue
-        break
-    st["stitch_s"] = time.perf_counter() - t0
+    with metrics.span("defl.large.stitch") as sp:
+        while True:
+            buf = out if caller_out else np.zeros(cap_total, np.uint8)
+            r, total, end_bit = _stitch(body, cands, lane_info,
+                                        buf[:cap_total])
+            if r is Result.EFULL and grow and cap_total < (1 << 40):
+                cap_total *= 4
+                continue
+            break
+    st["stitch_s"] = sp.s
     return _finish(r, total, end_bit, body, buf, flags, zf, caller_out)
 
 
@@ -290,23 +290,23 @@ def _host_parallel(body, zf, flags, cap_total, grow, seg_bytes, n_threads,
     workers + stitcher on this thread).  Grow-on-EFULL retries reuse the
     decoded tokens: only the stitch runs again."""
     lib = native.load()
-    t0 = time.perf_counter()
-    state = None
-    try:
-        while True:
-            out = caller_buf if caller_buf is not None \
-                else np.zeros(cap_total, np.uint8)
-            r, total, end_bit, state = native.inflate_large_parallel(
-                lib, body, out[:cap_total],
-                seg_bytes=seg_bytes or HOST_SEGMENT_BYTES,
-                n_threads=n_threads, state=state)
-            if r is Result.EFULL and grow and cap_total < (1 << 40):
-                cap_total *= 4
-                continue
-            break
-    finally:
-        native.large_free(lib, state)
-    st["parallel_s"] = time.perf_counter() - t0
+    with metrics.span("defl.large.parallel") as sp:
+        state = None
+        try:
+            while True:
+                out = caller_buf if caller_buf is not None \
+                    else np.zeros(cap_total, np.uint8)
+                r, total, end_bit, state = native.inflate_large_parallel(
+                    lib, body, out[:cap_total],
+                    seg_bytes=seg_bytes or HOST_SEGMENT_BYTES,
+                    n_threads=n_threads, state=state)
+                if r is Result.EFULL and grow and cap_total < (1 << 40):
+                    cap_total *= 4
+                    continue
+                break
+        finally:
+            native.large_free(lib, state)
+    st["parallel_s"] = sp.s
     return _finish(r, total, end_bit, body, out, flags, zf,
                    caller_buf is not None)
 
@@ -345,20 +345,19 @@ def _device_decode(body_dev, body_bytes, cands, chunk_steps, stats=None):
     Returns (toks u32 [M, rows], dst_pos, status, final, bit_end)."""
     kw = lane_args(body_bytes, cands)
     nbits, zflag, cap = kw.pop("nbits"), kw.pop("zflag"), kw.pop("cap")
-    t0 = time.perf_counter()
-    toks, st = decode_cu.decode_tokens(
-        body_dev, nbits, zflag, cap, K=chunk_steps, dict_len=WINDOW,
-        shared_input=True, **kw)
-    meta = torch.stack([st["dst_pos"], st["status"], st["final"],
-                        st["bitpos"]]).cpu().numpy()
-    if stats is not None:
-        stats["decode_s"] = time.perf_counter() - t0
-        stats["tok_rows"] = int(st["tok_rows"])
-        t0 = time.perf_counter()
+    with metrics.span("defl.large.decode") as decode:
+        toks, st = decode_cu.decode_tokens(
+            body_dev, nbits, zflag, cap, K=chunk_steps, dict_len=WINDOW,
+            shared_input=True, **kw)
+        meta = torch.stack([st["dst_pos"], st["status"], st["final"],
+                            st["bitpos"]]).cpu().numpy()
     # only the occupied token rows cross, lane-major for the stitch
-    toks_nt = session.fetch_tokens([(toks, st["tok_rows"])])
+    with metrics.span("defl.large.fetch") as fetch:
+        toks_nt = session.fetch_tokens([(toks, st["tok_rows"])])
     if stats is not None:
-        stats["fetch_s"] = time.perf_counter() - t0
+        stats["decode_s"] = decode.s
+        stats["tok_rows"] = int(st["tok_rows"])
+        stats["fetch_s"] = fetch.s
     dst_pos, status, final, bitpos = meta
     return toks_nt, dst_pos, status, final, bitpos.astype(np.int64)
 

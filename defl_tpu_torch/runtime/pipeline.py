@@ -14,6 +14,13 @@ runs in the executor; the resolver is a ctypes call, which releases the
 GIL, so the two overlap all the same.  The token fetch copies exactly
 the occupied rows into a pinned host buffer of each batch's own, which
 lives until that batch's resolve has finished.
+
+Every stage is a ``metrics.span``, the batch index in the profiler's
+``args``: ``defl.pack`` and ``defl.upload`` (each distinct batch once;
+on the card one more upload span for the sync that ends them),
+``defl.decode`` (the warm-up's too), ``defl.fetch``, ``defl.resolve`` (on
+the resolver's thread) and ``defl.resolve_wait`` (the driving thread
+blocked on that resolve).
 """
 
 from __future__ import annotations
@@ -83,18 +90,23 @@ def pipeline_inflate(stream_batches, dst_capacity: int, flags=FLAG_ZLIB,
     packed_cache = {}
     packed = []
     dev_in = []
-    for b in stream_batches:
+    up = lambda a: torch.from_numpy(a).to(dev)
+    for i, b in enumerate(stream_batches):
         key = id(b)
         if key not in packed_cache:
-            p = pack_streams(b, zf, C)
-            up = lambda a: torch.from_numpy(a).to(dev)
-            packed_cache[key] = (p, (up(p.words.view(np.int32)), up(p.nbits),
-                                     up(p.zflag), up(p.dst_cap)))
+            with metrics.span("defl.pack", str(i)):
+                p = pack_streams(b, zf, C)
+            with metrics.span("defl.upload", str(i)):
+                packed_cache[key] = (p, (up(p.words.view(np.int32)),
+                                         up(p.nbits), up(p.zflag),
+                                         up(p.dst_cap)))
         p, d = packed_cache[key]
         packed.append(p)
         dev_in.append(d)
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)  # uploads finish before the timed loop
+        # uploads finish before the timed loop (one more upload span)
+        with metrics.span("defl.upload"):
+            torch.cuda.synchronize(dev)
 
     # One resolve runs at a time and sink / as_bytes modes consume the
     # array before returning, so one pre-faulted output buffer serves
@@ -116,9 +128,12 @@ def pipeline_inflate(stream_batches, dst_capacity: int, flags=FLAG_ZLIB,
         return status[:n], out[:n], dst_pos[:n]
 
     def resolve_one(i, toks_nt, dst_pos, status):
-        out = native.native_resolve_tokens(
-            toks_nt, packed[i].words, dst_pos, C, n_threads=n_threads,
-            out=None if out_buf is None else out_buf[: toks_nt.shape[0]])
+        # on the resolver's worker thread: the span reaches the counters,
+        # and the trace only under a profiler that records every thread
+        with metrics.span("defl.resolve", str(i)):
+            out = native.native_resolve_tokens(
+                toks_nt, packed[i].words, dst_pos, C, n_threads=n_threads,
+                out=None if out_buf is None else out_buf[: toks_nt.shape[0]])
         n = len(stream_batches[i])
         # step-budget-exhausted lanes (status 127) retry on the host
         # engine (counted as ``pipeline_host_retries``), on their own
@@ -150,7 +165,9 @@ def pipeline_inflate(stream_batches, dst_capacity: int, flags=FLAG_ZLIB,
 
     def decode(i):
         w, nb, zfl, cp = dev_in[i]
-        return decode_cu.decode_tokens(w, nb, zfl, cp, T=T, K=chunk_steps)
+        with metrics.span("defl.decode", str(i)):
+            return decode_cu.decode_tokens(w, nb, zfl, cp, T=T,
+                                           K=chunk_steps)
 
     # Warm up outside the timed region: the first decode builds the
     # kernel library (nvcc) and loads it.
@@ -164,15 +181,18 @@ def pipeline_inflate(stream_batches, dst_capacity: int, flags=FLAG_ZLIB,
         pending = None  # (index, resolve future)
         tokens, st = decode(0)
         for i in range(B):
-            toks_nt, dst_pos, status, _ = fetch(tokens, st)
+            with metrics.span("defl.fetch", str(i)):
+                toks_nt, dst_pos, status, _ = fetch(tokens, st)
             if i + 1 < B:
                 tokens, st = decode(i + 1)
             if pending is not None:
                 j, fut = pending
-                per_batch[j] = fut.result()
+                with metrics.span("defl.resolve_wait", str(j)):
+                    per_batch[j] = fut.result()
             pending = (i, ex.submit(resolve_one, i, toks_nt, dst_pos, status))
         j, fut = pending
-        per_batch[j] = fut.result()
+        with metrics.span("defl.resolve_wait", str(j)):
+            per_batch[j] = fut.result()
     # join deferred retries (rare; confined to their batch slots)
     for j, v in enumerate(per_batch):
         if isinstance(v, tuple) and len(v) == 2 and v[0] is _RETRY:

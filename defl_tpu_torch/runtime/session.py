@@ -25,8 +25,6 @@ Differences from the JAX session:
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -126,7 +124,8 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
                 [int(c) for c in dst_capacities])
 
     zf = flags & FLAG_ZLIB
-    packed = pack_streams(streams, zf, caps)
+    with metrics.span("defl.pack"):
+        packed = pack_streams(streams, zf, caps)
     C = _bucket(max(caps))
     T = ib.step_budget(C)
     dict_len = len(bytes(dictionary)) if dictionary else 0
@@ -134,12 +133,15 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
     adler0 = checksums_cu.launches
 
     as_dev = lambda a: torch.from_numpy(a).to(dev)
-    words = as_dev(packed.words.view(np.int32))
-    nbits, zflag = as_dev(packed.nbits), as_dev(packed.zflag)
+    with metrics.span("defl.upload"):
+        words = as_dev(packed.words.view(np.int32))
+        nbits, zflag = as_dev(packed.nbits), as_dev(packed.zflag)
+        cap_dev = as_dev(packed.dst_cap)
     kw = dict(K=chunk_steps, dict_len=dict_len,
               has_dict=dictionary is not None)
-    tokens, st = decode_cu.decode_tokens(words, nbits, zflag,
-                                         as_dev(packed.dst_cap), T=T, **kw)
+    with metrics.span("defl.decode"):
+        tokens, st = decode_cu.decode_tokens(words, nbits, zflag, cap_dev,
+                                             T=T, **kw)
 
     # Undeclared-capacity EFULL lanes resume on the device with a grown
     # budget (revive_carry + a second decode continuing from the saved
@@ -154,36 +156,45 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
                 break
             caps_np = np.where(efull, np.minimum(caps_np * 4, 1 << 30),
                                caps_np)
-            cap_dev = as_dev(caps_np.astype(np.int32))
+            with metrics.span("defl.upload"):
+                cap_dev = as_dev(caps_np.astype(np.int32))
             carry = ib.revive_carry(st, new_cap=cap_dev)
             C = _bucket(int(caps_np.max()))
             T = ib.step_budget(C)
-            tokens, st = decode_cu.decode_tokens(words, nbits, zflag, cap_dev,
-                                                 T=T, carry=carry, **kw)
+            with metrics.span("defl.decode"):
+                tokens, st = decode_cu.decode_tokens(
+                    words, nbits, zflag, cap_dev, T=T, carry=carry, **kw)
             tok_parts.append((tokens, st["tok_rows"]))
         caps = [int(c) for c in caps_np[:n_in]]
 
     verify = bool(flags & FLAG_VERIFY_ADLER32) and bool(zf)
     adler_dev = None
     if resolve == "host":
-        toks_nt = fetch_tokens(tok_parts)
-        meta = torch.stack([st["dst_pos"], st["status"], st["bitpos"]]).cpu()
+        with metrics.span("defl.fetch"):
+            toks_nt = fetch_tokens(tok_parts)
+            meta = torch.stack([st["dst_pos"], st["status"],
+                                st["bitpos"]]).cpu()
         dst_pos, status, bitpos = (m.numpy() for m in meta)
-        out_np = native.native_resolve_tokens(toks_nt, packed.words, dst_pos,
-                                              C, dictionary)
+        with metrics.span("defl.resolve"):
+            out_np = native.native_resolve_tokens(toks_nt, packed.words,
+                                                  dst_pos, C, dictionary)
     else:
         toks = [t[:rows] for t, rows in tok_parts]
-        out = resolve_tokens(
-            toks[0] if len(toks) == 1 else torch.cat(toks, 0), words,
-            st["dst_pos"], C=C, dict_len=dict_len,
-            dict_words=pack_dictionary(dictionary)[0] if dictionary else None)
-        if verify:
-            # trailers are checked against checksums taken on the device:
-            # the outputs do not ship to the host for that
-            adler_dev = adler32_batch(out, st["dst_pos"]).cpu().numpy()
-        meta = torch.stack([st["dst_pos"], st["status"], st["bitpos"]]).cpu()
+        with metrics.span("defl.resolve"):
+            out = resolve_tokens(
+                toks[0] if len(toks) == 1 else torch.cat(toks, 0), words,
+                st["dst_pos"], C=C, dict_len=dict_len,
+                dict_words=(pack_dictionary(dictionary)[0] if dictionary
+                            else None))
+            if verify:
+                # trailers are checked against checksums taken on the
+                # device: the outputs do not ship to the host for that
+                adler_dev = adler32_batch(out, st["dst_pos"]).cpu().numpy()
+        with metrics.span("defl.fetch"):
+            meta = torch.stack([st["dst_pos"], st["status"],
+                                st["bitpos"]]).cpu()
+            out_np = out.cpu().numpy()
         dst_pos, status, bitpos = (m.numpy() for m in meta)
-        out_np = out.cpu().numpy()
     in_bytes = packed.words.view(np.uint8)
 
     # Lanes needing a host-engine pass: step-budget exhaustion only
@@ -202,26 +213,27 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
 
     results: list[Result] = []
     outputs: list[bytes] = []
-    for i in range(n_in):
-        if i in fb:
-            r, o = fb[i]
+    with metrics.span("defl.lane_bytes"):
+        for i in range(n_in):
+            if i in fb:
+                r, o = fb[i]
+                results.append(r)
+                outputs.append(o)
+                continue
+            r = Result(int(status[i]))
+            o = out_np[i, : int(dst_pos[i])].tobytes()
+            if verify and r is Result.OK:
+                # zlib trailer: 4 big-endian bytes after the byte-aligned
+                # end of the final block (the FLAG_VERIFY_ADLER32 extension)
+                tp = (int(bitpos[i]) + 7) // 8
+                stored = int.from_bytes(in_bytes[i, tp: tp + 4], "big")
+                if tp + 4 > packed.nbits[i] // 8:
+                    r = Result.UNFINISHED
+                elif stored != (int(adler_dev[i]) if adler_dev is not None
+                                else native.native_adler32(o)):
+                    r = Result.ERR
             results.append(r)
             outputs.append(o)
-            continue
-        r = Result(int(status[i]))
-        o = out_np[i, : int(dst_pos[i])].tobytes()
-        if verify and r is Result.OK:
-            # zlib trailer: 4 big-endian bytes after the byte-aligned end
-            # of the final block (the FLAG_VERIFY_ADLER32 extension)
-            tp = (int(bitpos[i]) + 7) // 8
-            stored = int.from_bytes(in_bytes[i, tp: tp + 4], "big")
-            if tp + 4 > packed.nbits[i] // 8:
-                r = Result.UNFINISHED
-            elif stored != (int(adler_dev[i]) if adler_dev is not None
-                            else native.native_adler32(o)):
-                r = Result.ERR
-        results.append(r)
-        outputs.append(o)
     launched = decode_cu.launches - launches0
     adler_launched = checksums_cu.launches - adler0
     stats = {"bitpos": bitpos, "dst_pos": dst_pos, "status": status,
@@ -355,7 +367,8 @@ def device_deflate(payloads, level=6, flags=FLAG_ZLIB, stats_out=None,
     (PERF.md), so it is kept by name for parity and is not the default.
 
     stats_out (optional dict) receives the stage seconds ``fields_s``,
-    ``upload_s``, ``pack_s``, ``fetch_s``, ``assemble_s`` and
+    ``upload_s``, ``pack_s``, ``fetch_s``, ``assemble_s`` (each the
+    length of its span ``defl.deflate.<stage>``, ``metrics.span``) and
     ``device_fallbacks``: the lanes whose fields overflowed the field
     budget and went through the serial encoder instead.
     """
@@ -382,68 +395,70 @@ def device_deflate(payloads, level=6, flags=FLAG_ZLIB, stats_out=None,
         host.copy_(t)
         return host.numpy().view(np.uint32)
 
-    t0 = time.perf_counter()
-    fields, n_fields, total_bits, adlers, results = \
-        native.native_deflate_fields(payloads, level=level, pin=on_card)
-    st["fields_s"] = time.perf_counter() - t0
+    with metrics.span("defl.deflate.fields") as sp:
+        fields, n_fields, total_bits, adlers, results = \
+            native.native_deflate_fields(payloads, level=level, pin=on_card)
+    st["fields_s"] = sp.s
 
-    t0 = time.perf_counter()
-    fields_dev = torch.from_numpy(fields.view(np.int32)).to(dev)
-    nf_dev = torch.from_numpy(n_fields.astype(np.int32)).to(dev)
-    sync()
-    st["upload_s"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    if pack == "scan":
-        slots, final_lo, _ = huffman_pack.pack_fields_scan(fields_dev, nf_dev)
+    with metrics.span("defl.deflate.upload") as sp:
+        fields_dev = torch.from_numpy(fields.view(np.int32)).to(dev)
+        nf_dev = torch.from_numpy(n_fields.astype(np.int32)).to(dev)
         sync()
-        st["pack_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        slots_np, lo_np = fetch(slots), fetch(final_lo)
-        st["fetch_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        bodies = native.native_encode_compact(fields, slots_np, n_fields,
-                                              lo_np, total_bits)
-    else:
-        W = 1024
-        while W * 32 < int(total_bits.max()) + 32:
-            W *= 2
-        words, _ = huffman_pack.pack_fields(fields_dev, nf_dev, n_words=W)
-        sync()
-        st["pack_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        wb = fetch(words)
-        st["fetch_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        bodies = [wb[i].view(np.uint8)[: (int(total_bits[i]) + 7) // 8]
-                  .tobytes() for i in range(len(payloads))]
+    st["upload_s"] = sp.s
 
-    zf = bool(flags & FLAG_ZLIB)
-    outs = []
-    fallback = []
-    for i in range(len(payloads)):
-        if results[i] is not Result.OK:
-            fallback.append(i)
-            outs.append(b"")
-        elif zf:
-            outs.append(b"\x78\x01" + bodies[i]
-                        + int(adlers[i]).to_bytes(4, "big"))
+    with metrics.span("defl.deflate.pack") as sp:
+        if pack == "scan":
+            slots, final_lo, _ = huffman_pack.pack_fields_scan(fields_dev,
+                                                               nf_dev)
         else:
-            outs.append(bodies[i])
-    if fallback:  # field-budget overflow: serial encoder for those lanes
-        rs, fb_outs = native.native_deflate_batch(
-            [payloads[i] for i in fallback], level=level, flags=flags)
-        bad = [i for i, r in zip(fallback, rs) if r is not Result.OK]
-        if bad:
-            raise RuntimeError(f"serial encoder failed for lanes {bad[:5]}")
-        for j, i in enumerate(fallback):
-            outs[i] = fb_outs[j]
-    st["assemble_s"] = time.perf_counter() - t0
+            W = 1024
+            while W * 32 < int(total_bits.max()) + 32:
+                W *= 2
+            words, _ = huffman_pack.pack_fields(fields_dev, nf_dev,
+                                                n_words=W)
+        sync()
+    st["pack_s"] = sp.s
+
+    with metrics.span("defl.deflate.fetch") as sp:
+        if pack == "scan":
+            slots_np, lo_np = fetch(slots), fetch(final_lo)
+        else:
+            wb = fetch(words)
+    st["fetch_s"] = sp.s
+
+    with metrics.span("defl.deflate.assemble") as sp:
+        if pack == "scan":
+            bodies = native.native_encode_compact(fields, slots_np, n_fields,
+                                                  lo_np, total_bits)
+        else:
+            bodies = [wb[i].view(np.uint8)[: (int(total_bits[i]) + 7) // 8]
+                      .tobytes() for i in range(len(payloads))]
+        zf = bool(flags & FLAG_ZLIB)
+        outs = []
+        fallback = []
+        for i in range(len(payloads)):
+            if results[i] is not Result.OK:
+                fallback.append(i)
+                outs.append(b"")
+            elif zf:
+                outs.append(b"\x78\x01" + bodies[i]
+                            + int(adlers[i]).to_bytes(4, "big"))
+            else:
+                outs.append(bodies[i])
+        if fallback:  # field-budget overflow: serial encoder for those lanes
+            rs, fb_outs = native.native_deflate_batch(
+                [payloads[i] for i in fallback], level=level, flags=flags)
+            bad = [i for i, r in zip(fallback, rs) if r is not Result.OK]
+            if bad:
+                raise RuntimeError(
+                    f"serial encoder failed for lanes {bad[:5]}")
+            for j, i in enumerate(fallback):
+                outs[i] = fb_outs[j]
+    st["assemble_s"] = sp.s
     st["device_fallbacks"] = fallback
     metrics.inc("device_deflate_lanes", len(payloads))
     metrics.inc("device_deflate_fallback_lanes", len(fallback))
     metrics.inc("deflate_bytes_in", int(sum(len(p) for p in payloads)))
-    metrics.inc("deflate_bytes_out", int(sum(len(o) for o in outs)))
     return outs
 
 
