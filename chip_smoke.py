@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
   1. device: the card's name and power limit, torch/CUDA versions, and
      the builds from csrc/, started together: nvcc for the kernels
      (decode_stream.cu, adler32_batch.cu), nvcc for their checked build
-     ([13]), g++ for the host engine (defl_host.cc); both nvcc builds'
+     ([13]), g++ for the host engine (defl_batch.cc); both nvcc builds'
      ptxas lines;
   2. the decode kernels against their plain PyTorch versions, exactly, on
      the card: (a) full decodes of a small matrix (dynamic, fixed, stored
@@ -60,7 +60,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      body by the comparator, and the chunk kernel against its twin slot
      for slot on them; the stages'
      seconds, the launch's time beside its bound, and the host-parallel
-     and serial C++ engines on the same buffer;
+     and serial C++ engines on the same buffer; (c) a batch of long
+     streams split at block starts (runtime/split.py): device_inflate on
+     32 PNGs at kodak32.batch's shape (768 x 512 RGB8, IDAT chunk lists,
+     made by the benchmark's generator codec_bench/data/png_kodak.py):
+     every stream OK and byte-equal, every stream split, one launch, at
+     least 80% of the lanes valid; the launch's time by CUDA events; every
+     valid lane of that launch held against the chunk loop over the chunk
+     kernel, and its shortest lanes (of at most BATCH_SPLIT_TWIN_ROWS
+     token rows) against the chunk loop over the twin by the comparator
+     (the chunk kernel against the twin slot for slot on them); the call's
+     stages (find, launch, stitch, ...), the same batch
+     with one lane a stream beside it, and the stages at each segment
+     target of BATCH_SPLIT_SWEEP;
   9. the hybrid encode, 2048 x 64 KiB at level 6: device_deflate with both
      packs byte-identical to the C++ encoder, every lane decompressed by
      zlib, no lane fallen back; on 64 lanes the closed-form scan pack
@@ -125,7 +137,8 @@ after [3], [4] and [3]-[11], and in [12]'s own process (the main path
 never launches it).  The line
 before the last holds the card's name and power limit, the one before it
 the kernels' JSON record; the last line is the result JSON.  Without CUDA it fails at once and prints
-no result.  It imports torch, numpy and defl_tpu_torch only.
+no result.  It imports torch, numpy and defl_tpu_torch only, and for
+[8c] the benchmark's PNG generator (numpy and zlib).
 """
 
 from __future__ import annotations
@@ -157,6 +170,16 @@ LARGE_PAYLOADS = (1024, 4096)
 # some 11,000 steps of the twin, so only one stream pays for it
 SPLIT_HELD = 6
 SPLIT_TAIL = 64
+# [8c]: the split decode of a batch's long streams at kodak32.batch's shape
+# (codec_bench/configs/kodak_png_idat8k.json: 32 PNGs of 768 x 512 RGB8 as
+# IDAT chunk lists): the seed of its images, the timed calls after the
+# first, and the segment targets (bytes) the sweep times
+BATCH_SPLIT_SEED = 14
+BATCH_SPLIT_CALLS = 3
+BATCH_SPLIT_SWEEP = (24576, 32768, 49152, 65536, 98304)
+# its lanes the twin re-decodes: the SPLIT_HELD shortest of at most this
+# many token rows (a whole segment takes the twin some 3 minutes)
+BATCH_SPLIT_TWIN_ROWS = 4096
 # [9]: bench.py's encode shape, and the lanes the reservoir loop re-packs
 DEFLATE_STREAMS = 2048
 PACK_LOOP_LANES = 64
@@ -784,16 +807,24 @@ def phase_split_comparator(decode_cu, large, native, fetch_tokens, payloads):
             len(comp))
 
 
-def held_split_lanes(decode_cu, lane_rows, call, tail):
+def held_split_lanes(decode_cu, lane_rows, call, tail, max_rows=None):
     """Lanes of a split decode's launch, as ``inflate_large`` made it,
     against the plain version at the same shape: ``call`` holds that
     launch's arguments and what it returned.  The lanes' arguments are
     indexed and the body stays the one on the card, so the cursors, limits
-    and word offsets are the launch's own."""
+    and word offsets are the launch's own.  ``max_rows``: hold only lanes
+    of at most that many token rows (the twin's time is its longest
+    lane's), none when no lane is that short."""
     (words, nbits, zflag, cap), kw, (tok, carry) = call
     M = int(nbits.shape[0])
     used = lane_rows(tok, carry["tok_rows"]).cpu().numpy()
-    pick = np.argsort(used, kind="stable")[:SPLIT_HELD]
+    order = np.argsort(used, kind="stable")
+    if max_rows is not None:
+        order = order[used[order] <= max_rows]
+        if not order.size:
+            return {"err": 0, "lanes": [], "rows": [], "start_bits": [],
+                    "plain_ms": 0.0, "plain_steps": 0}
+    pick = order[:SPLIT_HELD]
     if tail:
         last = np.arange(max(0, M - SPLIT_TAIL), M)
         pick = np.concatenate([
@@ -894,6 +925,144 @@ def phase_large(dt, decode_cu, lane_rows, large_stages, stream, flags, tail):
             "host_parallel_s": rec["host_parallel"][0]["wall_s"],
             "serial_s": rec["serial"][0]["wall_s"]}
 
+
+
+def kodak_batch(seed: int):
+    """(raw scanlines, IDAT chunk lists) of one batch of kodak32.batch's
+    configuration, made by the benchmark's own generator."""
+    from codec_bench.data import png_kodak
+
+    with open("codec_bench/configs/kodak_png_idat8k.json") as f:
+        cfg = json.load(f)
+    b = png_kodak.make_pool(cfg["format"], seed, 1, cfg["batch_images"])[0]
+    return b.raw, b.inputs
+
+
+#: device_inflate's spans, as [8c] reports them
+SPLIT_SPANS = ("pack", "split.find", "upload", "decode", "fetch", "resolve",
+               "lane_bytes")
+
+
+def split_call(dt, metrics, streams, cap):
+    """One device_inflate call: (results, outputs, stats, seconds by span
+    and ``wall``)."""
+    m0 = metrics.snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, outs, st = dt.device_inflate(streams, dst_capacities=cap)
+    wall = time.perf_counter() - t0
+    m1 = metrics.snapshot()
+    secs = {k: (m1.get(f"defl.{k}.ns", 0) - m0.get(f"defl.{k}.ns", 0)) / 1e9
+            for k in SPLIT_SPANS}
+    return res, outs, st, {**secs, "wall": wall}
+
+
+def median_calls(dt, metrics, streams, cap, raw, n):
+    """``n`` calls after a warm one, each checked: the median of each
+    span's seconds, the wall's, and the last call's stats."""
+    split_call(dt, metrics, streams, cap)
+    runs = []
+    for _ in range(n):
+        res, outs, st, secs = split_call(dt, metrics, streams, cap)
+        if [int(r) for r in res] != [0] * len(raw) or outs != raw:
+            raise AssertionError("batch split: a stream is not OK or its "
+                                 "bytes are wrong")
+        runs.append(secs)
+    return {k: float(np.median([r[k] for r in runs])) for k in runs[0]}, st
+
+
+def held_valid_lanes(decode_cu, call):
+    """Every lane of a split launch that validated (status OK, and ended on
+    its limit, the next lane's start, or in its stream's final block)
+    against the chunk loop over the chunk kernel at the same arguments, by
+    the comparator.  Returns (lanes held, max_abs_err, the loop's ms)."""
+    (words, nbits, zflag, cap), kw, (tok, carry) = call
+    status = carry["status"].cpu().numpy()
+    final = carry["final"].cpu().numpy()
+    bitpos = carry["bitpos"].cpu().numpy().astype(np.int64)
+    limit = np.asarray(kw["limit"], np.int64)
+    nbits = np.asarray(nbits)
+    valid = np.flatnonzero((status == 0) & (
+        (final > 0) | ((bitpos == limit) & (limit != nbits))))
+    per_lane = {k: np.asarray(kw[k])[valid]
+                for k in ("limit", "start_bit", "dict_reach", "in_base")}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = decode_cu.decode_tokens(
+        words, nbits[valid], np.asarray(zflag)[valid], np.asarray(cap)[valid],
+        T=kw["T"], K=CHUNK_K, dict_len=kw["dict_len"], shared_input=True,
+        **per_lane, _chunk=decode_cu.decode_chunk)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    err = held_equal(decode_cu, decode_cu.select_lanes((tok, carry),
+                                                       valid.tolist()),
+                     loop, f"batch split, {valid.size} valid lanes")
+    return int(valid.size), err, ms
+
+
+def phase_batch_split(dt, decode_cu, metrics, split, lane_rows):
+    """8c: device_inflate on a batch of 32 Kodak-size PNGs: one launch over
+    every segment of every stream, its lanes against the plain versions,
+    the call's stages, the one-lane route beside it, and the sweep of the
+    segment target."""
+    raw, streams = kodak_batch(BATCH_SPLIT_SEED)
+    cap = len(raw[0])
+    comp = sum(sum(len(c) for c in s) for s in streams)
+    calls = []
+    decode = decode_cu.decode_tokens
+
+    def kept(*a, **k):
+        out = decode(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    decode_cu.launches = 0
+    decode_cu.decode_tokens = kept      # the launch's arguments and tokens
+    try:
+        res, outs, st, first = split_call(dt, metrics, streams, cap)
+    finally:
+        decode_cu.decode_tokens = decode
+    launches = decode_cu.launches
+    if [int(r) for r in res] != [0] * len(raw) or outs != raw:
+        raise AssertionError("batch split: a stream is not OK or its bytes "
+                             "are wrong")
+    if st["split_streams"] != len(raw) or launches != 1 or len(calls) != 1:
+        raise AssertionError(f"batch split: {st['split_streams']} streams "
+                             f"split, {launches} launches")
+    if st["split_lanes_valid"] < 0.8 * st["split_lanes"]:
+        raise AssertionError(f"batch split: {st['split_lanes_valid']} of "
+                             f"{st['split_lanes']} lanes valid")
+    call = calls.pop()
+    a, k, (tok, carry) = call
+    launch_ms, _ = cuda_ms(lambda: decode(*a, **k), reps=3)
+    n_valid, err_valid, valid_ms = held_valid_lanes(decode_cu, call)
+    held = held_split_lanes(decode_cu, lane_rows, call, tail=False,
+                            max_rows=BATCH_SPLIT_TWIN_ROWS)
+    warm, _ = median_calls(dt, metrics, streams, cap, raw, BATCH_SPLIT_CALLS)
+    seg0 = split.SEGMENT_BYTES
+    sweep = {}
+    try:
+        split.SEGMENT_BYTES = 1 << 30   # no stream long enough: one lane each
+        one_lane, st1 = median_calls(dt, metrics, streams, cap, raw, 1)
+        if "split_streams" in st1:
+            raise AssertionError("batch split: the one-lane route split")
+        for seg in BATCH_SPLIT_SWEEP:
+            split.SEGMENT_BYTES = seg
+            secs, sst = median_calls(dt, metrics, streams, cap, raw,
+                                     BATCH_SPLIT_CALLS)
+            sweep[seg] = {**secs, "lanes": sst["split_lanes"],
+                          "lanes_valid": sst["split_lanes_valid"]}
+    finally:
+        split.SEGMENT_BYTES = seg0
+    return {"images": len(raw), "raw": sum(len(r) for r in raw),
+            "comp": comp, "launches": launches, "lanes": st["split_lanes"],
+            "lanes_valid": st["split_lanes_valid"],
+            "fallbacks": len(st["host_fallbacks"]),
+            "tok_rows": int(carry["tok_rows"]), "T": st["T"],
+            "launch_ms": launch_ms, "first_call": first, "warm": warm,
+            "one_lane": one_lane, "held_valid": n_valid,
+            "err": max(err_valid, held["err"]), "valid_loop_ms": valid_ms,
+            "held": held, "sweep": sweep, "segment": seg0}
 
 def phase_deflate(dt, native, hp, deflate_stages, payloads):
     """9: the hybrid encode against the C++ encoder, and the closed-form
@@ -1617,7 +1786,7 @@ def main() -> int:
     from defl_tpu_torch.ops import inflate_batch as ib
     from defl_tpu_torch.ops import resolve
     from defl_tpu_torch.ops.cuda import build, checksums_cu, decode_cu
-    from defl_tpu_torch.runtime import large, native, pack
+    from defl_tpu_torch.runtime import large, native, pack, split
     from defl_tpu_torch.runtime.session import fetch_tokens
 
     # ---- 1. device, and the three builds started together ----
@@ -1634,7 +1803,7 @@ def main() -> int:
         checked_build.result()
     log(f"[1] builds: nvcc (decode_stream.cu, adler32_batch.cu) "
         f"{build.build_seconds:.2f} s, its checked build (-DDEFL_CHECKED "
-        f"-lineinfo) {build.checked_build_seconds:.2f} s, g++ (defl_host.cc) "
+        f"-lineinfo) {build.checked_build_seconds:.2f} s, g++ (defl_batch.cc) "
         f"{native.build_seconds:.2f} s, together "
         f"{time.perf_counter() - t0:.2f} s; {build.lib_path()}, "
         f"{build.lib_path(True)}, {native.lib_path()}")
@@ -1839,6 +2008,30 @@ def main() -> int:
             f"{L['host_parallel_s']:.4f} s, serial C++ engine "
             f"{L['serial_s']:.4f} s on the same buffer")
         torch.cuda.empty_cache()
+    bs = phase_batch_split(dt, decode_cu, metrics, split, lane_rows)
+    stage = lambda d: ", ".join(f"{k} {d[k]:.4f}" for k in (
+        *SPLIT_SPANS, "wall"))
+    hd = bs["held"]
+    log(f"[8c] device_inflate of {bs['images']} Kodak-size PNGs "
+        f"({bs['raw']} B raw, {bs['comp']} B of IDAT chunks), segment "
+        f"target {bs['segment']} B: every stream OK and byte-equal, "
+        f"{bs['launches']} launch of {bs['lanes']} lanes, "
+        f"{bs['lanes_valid']} valid, {bs['fallbacks']} streams decoded in "
+        f"part by the host, tok_rows {bs['tok_rows']}, T "
+        f"{bs['T']}; the launch {bs['launch_ms']:.4f} ms; its "
+        f"{bs['held_valid']} valid lanes == the chunk loop over the chunk "
+        f"kernel by the comparator ({bs['valid_loop_ms']:.0f} ms), lanes "
+        f"{hd['lanes']} (token rows {hd['rows']}) == the chunk loop over the "
+        f"twin, chunk kernel == twin slot for slot on them ({hd['plain_ms']:.0f}"
+        f" ms; max_abs_err {bs['err']}); seconds, first call: "
+        f"{stage(bs['first_call'])}; warm (median of {BATCH_SPLIT_CALLS}): "
+        f"{stage(bs['warm'])} = {bs['raw'] / bs['warm']['wall'] / 1e9:.4f} "
+        f"GB/s; one lane a stream: {stage(bs['one_lane'])} = "
+        f"{bs['raw'] / bs['one_lane']['wall'] / 1e9:.4f} GB/s")
+    for seg, rec in bs["sweep"].items():
+        log(f"[8c] sweep, segment target {seg} B: {rec['lanes']} lanes, "
+            f"{rec['lanes_valid']} valid; {stage(rec)}")
+    torch.cuda.empty_cache()
 
     # ---- 9. the hybrid encode ----
     d_rec, pk_ms, pk_loop_s, pk_shape, pk_used = phase_deflate(
@@ -1971,7 +2164,7 @@ def main() -> int:
         "source": "defl_tpu_torch/csrc/decode_stream.cu",
         "replaces": "defl_tpu/ops/pallas/decode_pl.py:663",
         "launches": launches,
-        "max_abs_err": max(err_small, err_big, err_all, err_split,
+        "max_abs_err": max(err_small, err_big, err_all, err_split, bs["err"],
                            *(L["held"]["err"] for L in larges)),
         "ms": s_ms, "plain_ms": s_plain_ms, "plain_lanes": s_lanes,
         "bound_ms": s_bound, "bound_by": s_by, "library_ms": None,
@@ -1984,7 +2177,7 @@ def main() -> int:
         # for each stream's held lanes)
         "shared_input": {
             "launches": larges[0]["launches"],
-            "max_abs_err": max(err_split,
+            "max_abs_err": max(err_split, bs["err"],
                                *(L["held"]["err"] for L in larges)),
             "ms": larges[0]["launch_ms"],
             "held_lanes": [len(L["held"]["lanes"]) for L in larges],
@@ -1992,7 +2185,11 @@ def main() -> int:
             "bound_ms": larges[0]["bound"][0],
             "bound_by": larges[0]["bound"][1],
             "lanes": larges[0]["stages"]["lanes"],
-            "small_ms": sp_ms, "small_plain_ms": sp_plain_ms},
+            "small_ms": sp_ms, "small_plain_ms": sp_plain_ms,
+            # [8c]: a batch of long streams split in one launch
+            "batch_split": {k: bs[k] for k in (
+                "launches", "lanes", "lanes_valid", "launch_ms",
+                "held_valid", "err", "segment")}},
         # the sharded decode of [10]: launches of each part, one per shard
         "sharded": sharded,
         # [11]: the mixed batch's launch beside the clean one, its malformed

@@ -42,6 +42,14 @@ Differences from the JAX module:
   every call that named the device and ran no lane there,
   ``large_device_rerouted``; a body past the int32 bit cursors raises
   ``ValueError`` instead of taking the host engine.
+- The finds of a call run in one native call on the host's threads
+  (``dt_find_block_starts``), not from a pool of Python threads.
+- The lanes after the head that the stitch could take before the output
+  holds a whole window are decoded serially (``head_guard``): in the JAX
+  module a corrupt distance there that reaches before the stream's first
+  byte resolves against bytes the stream does not have, and comes back
+  OK.  ``runtime/split.py`` decodes a batch's long streams with the same
+  pieces.
 - The stitch gets ``out[:cap_total]``: a caller buffer larger than the
   declared ``dst_capacity`` is filled up to the capacity only, and EFULL
   comes back past it.  (The JAX module hands its stitch the whole buffer.)
@@ -50,8 +58,6 @@ Differences from the JAX module:
 """
 
 from __future__ import annotations
-
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -76,6 +82,20 @@ SEGMENT_CAP = 1 << 19
 WINDOW = 32768
 
 
+def header_result(head: bytes) -> Result | None:
+    """A zlib header's verdict on the host, as the decoders give it: None
+    for a valid header without a preset dictionary, UNFINISHED for one cut
+    short, ERR otherwise (a preset dictionary included: the split decode
+    has none to give)."""
+    if len(head) < 2:
+        return Result.UNFINISHED
+    cmf, flg = head[0], head[1]
+    if ((cmf & 0xF) != ZLIB_CM_DEFLATE or (cmf >> 4) > ZLIB_MAX_CINFO
+            or ((cmf << 8) | flg) % 31 != 0 or flg & ZLIB_FLAG_FDICT):
+        return Result.ERR
+    return None
+
+
 def device_route_allowed(body_size: int) -> bool:
     """Whether the device split decode can take a compressed body.
 
@@ -86,41 +106,71 @@ def device_route_allowed(body_size: int) -> bool:
     return 8 * body_size < (1 << 31) - (1 << 22)
 
 
+def find_lane_starts(body: np.ndarray, spans, seg_bits: int,
+                     n_threads: int | None = None) -> list[list[int]]:
+    """Each chain's lane starts, in bits of its own stream: ``spans[s]`` =
+    (byte offset of the stream in ``body``, its bytes, the chain's head
+    bit, the bit targets to find near).  A chain is its head, then the
+    first block start the finder validates between each target and two
+    segments past it, in increasing order (a find that sees none, or the
+    one before's, adds no lane).  Every find of every chain runs in one
+    native call on the host's threads, each reading its own stream only
+    (``dt_find_block_starts``)."""
+    owner, offs, lens, lo, hi = [], [], [], [], []
+    for s, (off, n, _, targets) in enumerate(spans):
+        for t in targets:
+            owner.append(s)
+            offs.append(off)
+            lens.append(n)
+            lo.append(t)
+            hi.append(min(t + 2 * seg_bits, 8 * n))
+    hits = native.find_block_starts(native.load(), body, offs, lens, lo, hi,
+                                    n_threads)
+    chains = [[head] for _, _, head, _ in spans]
+    for s, h in zip(owner, hits.tolist()):
+        if h > chains[s][-1]:
+            chains[s].append(h)
+    return chains
+
+
 def _find_candidates(body: np.ndarray, start_bit: int, n_seg: int,
                      seg_bits: int, n_threads: int = 4) -> list[int]:
-    lib = native.load()
-    nbits = 8 * body.size
-
-    def find(k):
-        lo = start_bit + k * seg_bits
-        return int(native.find_block_start(
-            lib, body, lo, min(lo + 2 * seg_bits, nbits)))
-
-    with ThreadPoolExecutor(max_workers=n_threads) as ex:
-        hits = list(ex.map(find, range(1, n_seg)))
-    out = [start_bit]
-    for h in hits:
-        if h > out[-1]:
-            out.append(h)
-    return out
+    targets = [start_bit + k * seg_bits for k in range(1, n_seg)]
+    return find_lane_starts(body, [(0, body.size, start_bit, targets)],
+                            seg_bits, n_threads)[0]
 
 
-def _upload_body(body: np.ndarray, dev: torch.device):
-    """The padded body as an int32 tensor on ``dev``, and the side stream
-    its copy runs on (None on the CPU).  The copy leaves page-locked
-    memory, so it runs beside whatever the host does next."""
-    if dev.type == "cpu":
-        return torch.from_numpy(decode_cu.pad_body(body)).view(torch.int32), \
-            None
-    size = -(-(body.size + 4 * decode_cu.PAD_WORDS) // 16) * 16
-    host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+def host_body(total: int, dev: torch.device):
+    """A host buffer for a body of ``total`` bytes with the decoder's zero
+    words behind it, as (uint8 tensor, its ndarray view); the caller fills
+    ``view[:total]``.  Page-locked for a card, so that its upload
+    (``upload_body``) runs beside whatever the host does next."""
+    size = -(-(total + 4 * decode_cu.PAD_WORDS) // 16) * 16
+    host = torch.empty(size, dtype=torch.uint8,
+                       pin_memory=dev.type == "cuda")
     view = host.numpy()
-    view[:body.size] = body
-    view[body.size:] = 0
+    view[total:] = 0
+    return host, view
+
+
+def upload_body(host: torch.Tensor, dev: torch.device):
+    """``host_body``'s buffer as an int32 tensor on ``dev``, and the side
+    stream its copy runs on (None on the CPU, where the decoder reads the
+    buffer itself).  A launch that reads it waits first: ``wait_body``."""
+    if dev.type == "cpu":
+        return host.view(torch.int32), None
     side = torch.cuda.Stream(dev)
     with torch.cuda.stream(side):
         body_dev = host.to(dev, non_blocking=True)
     return body_dev.view(torch.int32), side
+
+
+def wait_body(body_dev: torch.Tensor, side, dev: torch.device) -> None:
+    """Orders the next launch after the body's upload on its side stream."""
+    if side is not None:
+        torch.cuda.current_stream(dev).wait_stream(side)
+        body_dev.record_stream(torch.cuda.current_stream(dev))
+        side.synchronize()
 
 
 def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
@@ -172,14 +222,9 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
         dev = session._pick_decoder(device)
     native.load()
     if zf:
-        if len(data) < 2:
-            return Result.UNFINISHED, empty
-        cmf, flg = data[0], data[1]
-        if ((cmf & 0xF) != ZLIB_CM_DEFLATE or (cmf >> 4) > ZLIB_MAX_CINFO
-                or ((cmf << 8) | flg) % 31 != 0):
-            return Result.ERR, empty
-        if flg & ZLIB_FLAG_FDICT:
-            return Result.ERR, empty  # preset dict on huge streams: host path
+        verdict = header_result(data[:2])
+        if verdict is not None:
+            return verdict, empty
         start = 2
 
     body = np.frombuffer(data, np.uint8)[start:]
@@ -218,7 +263,9 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     if n_seg > 2:
         # the upload of the shared body runs beside the block find below:
         # nothing per lane ships to the device
-        body_dev, side = _upload_body(body, dev)
+        host, view = host_body(body.size, dev)
+        view[:body.size] = body
+        body_dev, side = upload_body(host, dev)
 
     with metrics.span("defl.large.find") as sp:
         cands = _find_candidates(body, 0, n_seg, 8 * seg,
@@ -231,10 +278,7 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     if body_dev is not None and len(cands) > 2:
         st["route"] = "device"
         with metrics.span("defl.large.upload") as sp:
-            if side is not None:
-                torch.cuda.current_stream(dev).wait_stream(side)
-                body_dev.record_stream(torch.cuda.current_stream(dev))
-                side.synchronize()
+            wait_body(body_dev, side, dev)
         st["upload_s"] = sp.s
         lane_info = _device_decode(body_dev, body.size, cands, chunk_steps,
                                    st)
@@ -242,11 +286,9 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
         # exactly on the next candidate, or in the final block).  The
         # stitch span-decodes any gap, so a broken device path only shows
         # as serial speed: this count makes it visible and testable
-        _, dst_pos, status, final, bit_end = lane_info
-        nxt = np.concatenate([np.asarray(cands[1:], np.int64), [-1]])
-        st["lanes_valid"] = int(((status == 0)
-                                 & ((final > 0) | (bit_end == nxt))).sum())
+        st["lanes_valid"] = int(seams(cands, lane_info).sum())
         st["lanes"] = len(cands)
+        lane_info = head_guard(cands, lane_info)
         metrics.inc("large_device_lanes", st["lanes"])
         metrics.inc("large_device_lanes_valid", st["lanes_valid"])
     else:
@@ -258,14 +300,9 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     # high-ratio stream retries the stitch alone; the block find and the
     # device decode are reused.
     with metrics.span("defl.large.stitch") as sp:
-        while True:
-            buf = out if caller_out else np.zeros(cap_total, np.uint8)
-            r, total, end_bit = _stitch(body, cands, lane_info,
-                                        buf[:cap_total])
-            if r is Result.EFULL and grow and cap_total < (1 << 40):
-                cap_total *= 4
-                continue
-            break
+        r, total, end_bit, buf, _ = stitch_grown(body, cands, lane_info,
+                                                 cap_total, grow, 1 << 40,
+                                                 out)
     st["stitch_s"] = sp.s
     return _finish(r, total, end_bit, body, buf, flags, zf, caller_out)
 
@@ -311,13 +348,32 @@ def _host_parallel(body, zf, flags, cap_total, grow, seg_bytes, n_threads,
                    caller_buf is not None)
 
 
-def lane_args(body_bytes: int, cands) -> dict:
+def stitch_grown(body, cands, lane_info, cap: int, grow: bool, limit: int,
+                 out=None):
+    """The chain stitched into ``cap`` bytes (of ``out`` when given, else
+    of a new buffer).  With ``grow`` (no declared capacity, as the oracle
+    and ``device_inflate`` grow) an EFULL output grows fourfold up to
+    ``limit`` and the chain is stitched again: only the stitch depends on
+    the output buffer.  Returns (Result, total, end bit, buffer, cap)."""
+    while True:
+        buf = out if out is not None else np.zeros(cap, np.uint8)
+        r, total, end_bit = _stitch(body, cands, lane_info, buf[:cap])
+        if r is Result.EFULL and grow and cap < limit:
+            cap = min(4 * cap, limit)
+            continue
+        return r, total, end_bit, buf, cap
+
+
+def lane_args(body_bytes: int, cands, byte_off: int = 0,
+              cap: int = SEGMENT_CAP) -> dict:
     """``decode_tokens``' arguments for the split decode of a body of
     ``body_bytes`` at the candidate bit offsets ``cands``: every lane's
-    cursors are positions in the whole stream."""
+    cursors are positions in the whole stream, which lies ``byte_off``
+    bytes into the body on the device (each lane's ``nbits`` is the
+    stream's end there), and each lane's output stops at ``cap``."""
     M = len(cands)
-    start = np.asarray(cands, np.int64)
-    end = np.concatenate([start[1:], [8 * body_bytes]])
+    start = 8 * byte_off + np.asarray(cands, np.int64)
+    end = np.concatenate([start[1:], [8 * (byte_off + body_bytes)]])
     # the step budget follows the LONGEST segment (a lane spends a step
     # only where it does one; a tail segment that is longer still spends
     # its budget and is decoded serially by the stitch)
@@ -332,11 +388,48 @@ def lane_args(body_bytes: int, cands) -> dict:
     reach = np.full(M, WINDOW, np.int32)
     if cands[0] == 0:
         reach[0] = 0
-    return dict(nbits=np.full(M, 8 * body_bytes, np.int32),
+    return dict(nbits=np.full(M, end[-1], np.int32),
                 zflag=np.zeros(M, np.int32),
-                cap=np.full(M, SEGMENT_CAP, np.int32), T=T,
+                cap=np.full(M, cap, np.int32), T=T,
                 limit=end.astype(np.int32), start_bit=start.astype(np.int32),
                 dict_reach=reach, in_base=(start // 8).astype(np.int32))
+
+
+def seams(cands, lane_info) -> np.ndarray:
+    """The lanes that validated: status OK and ended exactly on the next
+    candidate, or in the final block.  The stitch takes such a lane's
+    tokens where its walk reaches the lane's start; it decodes any other
+    gap serially."""
+    _, _, status, final, bit_end = lane_info
+    nxt = np.append(np.asarray(cands[1:], np.int64), -1)
+    return (status == 0) & ((final > 0) | (bit_end == nxt))
+
+
+def head_guard(cands, lane_info):
+    """``lane_info`` with the lanes after the head that the stitch could
+    take before its output holds a whole window marked not OK, so that
+    the stitch decodes them serially.
+
+    A lane after the head decodes with the whole window before its start
+    (``lane_args``), so a corrupt distance that reaches before the
+    stream's first byte decodes OK there and would resolve against bytes
+    the stream does not have; the serial decode meets it as the engines
+    do.  Once the chain of validated lanes from the head has put out a
+    window, no distance can reach before the stream, and every later lane
+    stands.  A chain whose head is not bit 0 is left as it is."""
+    M = len(cands)
+    if M < 2 or cands[0] != 0:
+        return lane_info
+    toks, dst_pos, status, final, bit_end = lane_info
+    ok = np.logical_and.accumulate(seams(cands, lane_info)[:-1])
+    out = np.cumsum(dst_pos[:-1].astype(np.int64))   # before lane k = 1..
+    whole = np.flatnonzero(ok & (out >= WINDOW))
+    first = int(whole[0]) + 1 if whole.size else M
+    if first == 1:
+        return lane_info
+    status = status.copy()
+    status[1:first] = 1
+    return toks, dst_pos, status, final, bit_end
 
 
 def _device_decode(body_dev, body_bytes, cands, chunk_steps, stats=None):

@@ -1,8 +1,10 @@
-"""ctypes bindings for the port's C++ host engine (csrc/defl_host.cc).
+"""ctypes bindings for the port's C++ host engine (csrc/defl_host.cc, a
+copy of the JAX package's, with the batched entries of csrc/defl_batch.cc).
 
 Counterpart of ``defl_tpu/runtime/native.py``.  The library builds with
-g++ at first use into ``csrc/build/``, named by a hash of its source, so
-an edited source builds anew and a stale library is never loaded.  A
+g++ at first use from ``csrc/defl_batch.cc``, which includes the engine,
+into ``csrc/build/``, named by a hash of every C++ source there, so an
+edited source builds anew and a stale library is never loaded.  A
 failed build raises with g++'s own message: the port has no resolver or
 host engine to carry on with instead.
 
@@ -32,7 +34,8 @@ from defl_tpu_torch.errors import Result
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 _BUILD = os.path.join(_CSRC, "build")
-SOURCE = "defl_host.cc"
+#: the one translation unit g++ builds; it includes ``defl_host.cc``
+SOURCE = "defl_batch.cc"
 _FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
 
 _lock = threading.Lock()
@@ -51,8 +54,9 @@ _pptr = ctypes.POINTER(ctypes.c_void_p)
 
 def lib_path() -> str:
     h = hashlib.sha256()
-    with open(os.path.join(_CSRC, SOURCE), "rb") as f:
-        h.update(f.read())
+    for name in sorted(n for n in os.listdir(_CSRC) if n.endswith(".cc")):
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(_FLAGS).encode())
     return os.path.join(_BUILD, f"libdefl_host_{h.hexdigest()[:16]}.so")
 
@@ -118,6 +122,10 @@ def load():
         lib.dt_find_block_start.restype = ctypes.c_int64
         lib.dt_find_block_start.argtypes = [_u8p, ctypes.c_uint64,
                                             ctypes.c_int64, ctypes.c_int64]
+        lib.dt_find_block_starts.restype = None
+        lib.dt_find_block_starts.argtypes = [
+            _u8p, _i64p, _i64p, _i64p, _i64p, ctypes.c_int64, _i64p,
+            ctypes.c_int]
         lib.dt_inflate_span.restype = ctypes.c_int
         lib.dt_inflate_span.argtypes = [
             _u8p, ctypes.c_uint64, ctypes.c_int64, ctypes.c_int64,
@@ -127,6 +135,11 @@ def load():
             _u8p, ctypes.c_uint64, _i64p, ctypes.c_int64,
             _u32p, ctypes.c_int64, _i32p, _i32p, _i32p, _i64p,
             _u8p, ctypes.c_uint64, _u64p, _i64p]
+        lib.dt_stitch_many.restype = None
+        lib.dt_stitch_many.argtypes = [
+            _u8p, _i64p, _i64p, _i64p, _i64p, ctypes.c_int64, _i64p,
+            _u32p, ctypes.c_int64, _i32p, _i32p, _i32p, _i64p, _pptr, _u64p,
+            _i32p, _u64p, _i64p, ctypes.c_int]
         lib.dt_deflate_fields_batch.restype = ctypes.c_int
         lib.dt_deflate_fields_batch.argtypes = [
             _pptr, _u64p, _u32p, ctypes.c_int64, _i64p, _i64p, _u32p, _i32p,
@@ -443,6 +456,28 @@ def find_block_start(lib, body, bit_lo: int, bit_hi: int) -> int:
                                        bit_lo, bit_hi))
 
 
+def find_block_starts(lib, body, offs, lens, lo, hi,
+                      n_threads: int | None = None) -> np.ndarray:
+    """Many finds in one call, on ``n_threads`` native threads: find k
+    looks between bits ``lo[k]`` and ``hi[k]`` of the stream of ``lens[k]``
+    bytes at byte ``offs[k]`` of ``body`` (uint8 ndarray), and reads
+    nothing outside it.  Returns int64 [n]: each find's bit offset in its
+    own stream, or -1, as ``find_block_start``."""
+    args = [np.ascontiguousarray(a, dtype=np.int64)
+            for a in (offs, lens, lo, hi)]
+    n = args[0].size
+    if any(a.shape != (n,) for a in args):
+        raise ValueError("offs, lens, lo and hi must be [n] each")
+    if n and (int(args[0].min()) < 0 or int(args[1].min()) < 0
+              or int((args[0] + args[1]).max()) > body.size):
+        raise ValueError("a stream lies outside the body")
+    out = np.empty(n, np.int64)
+    lib.dt_find_block_starts(_in_u8(body), *(a.ctypes.data_as(_i64p)
+                                             for a in args),
+                             n, out.ctypes.data_as(_i64p), _threads(n_threads))
+    return out
+
+
 def inflate_span(lib, body, bit_start: int, bit_limit: int, out, out_pos: int):
     """Serial raw-deflate decode from an arbitrary bit position with
     out[:out_pos] as the back-reference window; stops at the first block
@@ -547,3 +582,53 @@ def stitch(lib, body, cands, lane_info, out):
         final_a.ctypes.data_as(_i32p), bit_end_a.ctypes.data_as(_i64p),
         ptr, size, ctypes.byref(total), ctypes.byref(end_bit))
     return Result(r), int(total.value), int(end_bit.value)
+
+
+def stitch_many(lib, body, offs, lens, first, count, cands, lane_info, outs,
+                n_threads: int | None = None):
+    """Many chains stitched in one call (``dt_stitch_many``), one a task on
+    ``n_threads`` native threads.  Chain s is the stream of ``lens[s]``
+    bytes at byte ``offs[s]`` of ``body``; its lanes are ``count[s]`` lanes
+    from lane ``first[s]`` of ``cands`` and ``lane_info`` = (tokens u32
+    [M, T], dst_pos, status, final, bit_end), whose bit positions
+    (``cands``, ``bit_end``) are in its own stream; it goes into ``outs[s]``
+    (a writable uint8 array a chain), as ``stitch`` stitches one.  Returns
+    (Results, totals, end bits), one each a chain."""
+    geo = [np.ascontiguousarray(a, dtype=np.int64)
+           for a in (offs, lens, first, count)]
+    S = geo[0].size
+    cands_a = np.ascontiguousarray(cands, dtype=np.int64)
+    M = cands_a.size
+    toks_nt, dst_pos, status, final, bit_end = lane_info
+    toks_a = np.ascontiguousarray(toks_nt, dtype=np.uint32)
+    lanes = [np.ascontiguousarray(a, dtype=t) for a, t in (
+        (dst_pos, np.int32), (status, np.int32), (final, np.int32),
+        (bit_end, np.int64))]
+    if any(a.shape != (S,) for a in geo) or len(outs) != S:
+        raise ValueError("offs, lens, first, count and outs must be [S]")
+    if toks_a.ndim != 2 or toks_a.shape[0] != M or \
+            any(a.shape != (M,) for a in lanes):
+        raise ValueError(f"tokens must be [{M}, T] and the lane arrays "
+                         f"[{M}]")
+    if S and (int(geo[0].min()) < 0 or int(geo[1].min()) < 0
+              or int((geo[0] + geo[1]).max()) > body.size
+              or int(geo[2].min()) < 0 or int(geo[3].min()) < 0
+              or int((geo[2] + geo[3]).max()) > M):
+        raise ValueError("a chain lies outside the body or the lanes")
+    for o in outs:
+        _out_u8(o, "outs[s]")
+    out_ptrs = (ctypes.c_void_p * max(S, 1))(*[o.ctypes.data for o in outs])
+    caps = (ctypes.c_uint64 * max(S, 1))(*[o.size for o in outs])
+    results = np.zeros(S, np.int32)
+    totals = np.zeros(S, np.uint64)
+    end_bits = np.zeros(S, np.int64)
+    i64 = lambda a: a.ctypes.data_as(_i64p)
+    lib.dt_stitch_many(
+        _in_u8(body), *(i64(a) for a in geo), S, i64(cands_a),
+        toks_a.ctypes.data_as(_u32p), toks_a.shape[1],
+        *(a.ctypes.data_as(_i32p) for a in lanes[:3]), i64(lanes[3]),
+        out_ptrs, caps, results.ctypes.data_as(_i32p),
+        totals.ctypes.data_as(_u64p), i64(end_bits), _threads(n_threads))
+    return ([Result(int(r)) for r in results], totals.astype(np.int64),
+            end_bits)
+

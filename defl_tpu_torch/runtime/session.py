@@ -100,6 +100,14 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
     FLAG_VERIFY_ADLER32 the zlib trailers are checked against checksums
     computed there too (ops/checksums.py): only the resolved bytes and
     4 bytes per lane come back.
+
+    With ``resolve="host"`` and no dictionary, a batch that holds a long
+    stream (a body of three ``split.SEGMENT_BYTES`` or more) is split at
+    speculated block starts into lanes of one launch and stitched on the
+    host (runtime/split.py); its stats mean the same, with the stitch's
+    status, bytes and end bit for each stream and, as ``host_fallbacks``,
+    the streams the host decoded any part of serially, and add
+    ``split_streams``, ``split_lanes`` and ``split_lanes_valid``.
     """
     if resolve not in ("host", "device"):
         raise ValueError(f"resolve must be 'host' or 'device', got "
@@ -111,6 +119,14 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
     n_in = len(streams)
     if n_in == 0:
         return [], [], {}
+    if resolve == "host" and dictionary is None:
+        from defl_tpu_torch.runtime import split
+
+        if split.wanted(streams, bool(flags & FLAG_ZLIB)):
+            results, outputs, stats = split.inflate(
+                streams, flags, dst_capacities, chunk_steps, dev)
+            _count(n_in, outputs, stats)
+            return results, outputs, stats
 
     if dst_capacities is None:
         # No declared capacity: assume a generous ratio; lanes that still
@@ -240,14 +256,19 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
              "T": T, "C": C,
              "host_fallbacks": fb_idx, "decode_chunk_launches": launched,
              "adler32_batch_launches": adler_launched}
+    _count(n_in, outputs, stats)
+    return results, outputs, stats
+
+
+def _count(n_in, outputs, stats):
+    """``device_inflate``'s counters for one call, whatever its route."""
     metrics.inc("device_inflate_batches")
     metrics.inc("device_inflate_lanes", n_in)
     metrics.inc("device_inflate_bytes_out",
                 int(sum(len(o) for o in outputs)))
-    metrics.inc("host_fallback_lanes", len(fb_idx))
-    metrics.inc("decode_chunk_launches", launched)
-    metrics.inc("adler32_batch_launches", adler_launched)
-    return results, outputs, stats
+    metrics.inc("host_fallback_lanes", len(stats["host_fallbacks"]))
+    metrics.inc("decode_chunk_launches", stats["decode_chunk_launches"])
+    metrics.inc("adler32_batch_launches", stats["adler32_batch_launches"])
 
 
 def _host_fallback(datas, caps, flags, dictionary):

@@ -153,8 +153,9 @@ def test_port_never_imports_jax():
 
 
 def test_chip_smoke_imports_only_the_port():
-    """chip_smoke.py imports the port, torch, numpy and the standard
-    library: never defl_tpu or jax."""
+    """chip_smoke.py imports the port, torch, numpy, the standard library
+    and the benchmark's PNG generator (codec_bench.data, for [8c]'s
+    batch): never defl_tpu or jax."""
     import ast
 
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
@@ -168,4 +169,4 @@ def test_chip_smoke_imports_only_the_port():
     assert not roots & {"defl_tpu", "jax", "jaxlib"}
     assert roots <= {"__future__", "concurrent", "json", "os", "re",
                      "signal", "subprocess", "sys", "tempfile", "time", "zlib",
-                     "numpy", "torch", "defl_tpu_torch"}, roots
+                     "numpy", "torch", "defl_tpu_torch", "codec_bench"}, roots

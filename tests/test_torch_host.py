@@ -385,14 +385,16 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 
 def test_port_sources_name_no_import_of_the_jax_package():
     """The same, read from the sources: no import statement of the port,
-    of chip_smoke.py, of the port's examples or of its soak names defl_tpu
-    or jax."""
+    of chip_smoke.py, of the port's examples, of its soak or of the
+    benchmark's PNG generator that chip_smoke.py runs names defl_tpu or
+    jax."""
     import ast
 
     files = [os.path.join(REPO, p) for p in (
         "chip_smoke.py", "examples/png_idat_torch.py",
         "examples/batch_pipeline_torch.py", "tests/soak_torch_differential.py",
-        "tests/test_torch_cuda_fuzz.py")]
+        "tests/test_torch_cuda_fuzz.py", "codec_bench/data/png_kodak.py",
+        "codec_bench/data/common.py")]
     for root, _, names in os.walk(os.path.join(REPO, "defl_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 25
