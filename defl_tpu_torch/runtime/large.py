@@ -207,11 +207,14 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
 
     stats_out (optional dict) receives ``route`` and per-stage seconds,
     each the length of its span ``defl.large.<stage>`` (``metrics.span``):
-    ``parallel_s`` (host engine) or ``find_s``, ``upload_s`` (what was
-    left of the body's upload after the find), ``decode_s``, ``fetch_s``,
-    ``stitch_s`` with ``segments`` (of ``SEGMENT_BYTES``; under 3 the
-    stream is too short to split and takes the serial stitch), ``lanes``,
-    ``lanes_valid`` and ``tok_rows`` (device engine)."""
+    ``parallel_s`` (host engine) or ``body_s`` (the page-locked body's
+    allocation, fill and the upload's start), ``find_s``, ``upload_s``
+    (what was left of the body's upload after the find), ``decode_s``,
+    ``fetch_s``, ``stitch_s`` with ``segments`` (of ``SEGMENT_BYTES``;
+    under 3 the stream is too short to split and takes the serial
+    stitch), ``lanes``, ``lanes_valid`` and ``tok_rows`` (device
+    engine).  Under FLAG_VERIFY_ADLER32 the trailer's check of an OK
+    stream is span ``defl.large.verify``, on either engine (``_finish``)."""
     data = bytes(data)
     zf = bool(flags & FLAG_ZLIB)
     caller_out = out is not None
@@ -263,9 +266,11 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     if n_seg > 2:
         # the upload of the shared body runs beside the block find below:
         # nothing per lane ships to the device
-        host, view = host_body(body.size, dev)
-        view[:body.size] = body
-        body_dev, side = upload_body(host, dev)
+        with metrics.span("defl.large.body") as sp:
+            host, view = host_body(body.size, dev)
+            view[:body.size] = body
+            body_dev, side = upload_body(host, dev)
+        st["body_s"] = sp.s
 
     with metrics.span("defl.large.find") as sp:
         cands = _find_candidates(body, 0, n_seg, 8 * seg,
@@ -315,9 +320,11 @@ def _finish(r, total, end_bit, body, buf, flags, zf, caller_out):
         tb = (end_bit + 7) // 8
         if tb + 4 > body.size:
             r = Result.UNFINISHED
-        elif int.from_bytes(body[tb: tb + 4].tobytes(), "big") \
-                != native.native_adler32(buf[:total]):
-            r = Result.ERR
+        else:
+            with metrics.span("defl.large.verify"):
+                adler = native.native_adler32(buf[:total])
+            if int.from_bytes(body[tb: tb + 4].tobytes(), "big") != adler:
+                r = Result.ERR
     return (r, total) if caller_out else (r, buf[:total].tobytes())
 
 

@@ -255,10 +255,38 @@ def test_inflate_large_device_route_stats_are_its_spans(monkeypatch):
                                   device="cpu")
     m1 = metrics.snapshot()
     assert r is Result.OK and out == raw and st["route"] == "device"
-    for stage in ("find", "upload", "decode", "fetch", "stitch"):
+    for stage in ("body", "find", "upload", "decode", "fetch", "stitch"):
         key = "defl.large." + stage
         assert _delta(m0, m1, key + ".n") == 1, stage
         assert round(st[stage + "_s"] * 1e9) == _delta(m0, m1, key + ".ns"), \
             stage
     assert "parallel_s" not in st
     assert _delta(m0, m1, "defl.large.parallel.n") == 0
+
+
+@needs_native
+@pytest.mark.parametrize("verify", [False, True])
+def test_inflate_large_device_route_body_and_verify_spans(monkeypatch,
+                                                          verify):
+    """The card's route closes ``defl.large.body`` once a call, and
+    ``defl.large.verify`` (the trailer's adler32 over the output) once a
+    call under FLAG_VERIFY_ADLER32 alone."""
+    monkeypatch.setattr(tlarge, "SEGMENT_BYTES", 1024)
+    raw = b"".join(make_silesia_like(65536, 65536))[:24_000]
+    co = zlib.compressobj(6, zlib.DEFLATED, 15, 4)
+    comp = co.compress(raw) + co.flush()
+    flags = FLAG_ZLIB | (FLAG_VERIFY_ADLER32 if verify else 0)
+    for calls in (1, 2):
+        m0 = metrics.snapshot()
+        for _ in range(calls):
+            buf = np.zeros(len(raw), np.uint8)
+            r, n = tlarge.inflate_large(comp, flags=flags,
+                                        dst_capacity=len(raw),
+                                        use_device=True, out=buf,
+                                        device="cpu")
+            assert r is Result.OK and buf.tobytes() == raw
+        m1 = metrics.snapshot()
+        assert _delta(m0, m1, "defl.large.body.n") == calls
+        assert _delta(m0, m1, "defl.large.body.ns") > 0
+        assert _delta(m0, m1, "defl.large.verify.n") == calls * verify
+        assert (_delta(m0, m1, "defl.large.verify.ns") > 0) == verify
