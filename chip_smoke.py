@@ -130,7 +130,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
      site, in the middle slot of a block, must raise with its own site and
      lane (7 sites of the stream kernel in batch and in shared-input mode,
      3 of the chunk kernel, adler32's one).  The checked launches' times
-     beside the unchecked ones', in turns, and both builds' ptxas lines.
+     beside the unchecked ones', in turns, and both builds' ptxas lines;
+ 14. the block finder (csrc/find_starts.cu, the split and large routes'
+     finds on the card): the kernel against the host's native finder on
+     every find, and against its plain PyTorch version, of the fuzz
+     corpus's streams (with random bytes and streams of small blocks, in
+     one body at odd offsets), a kodak32.batch call (32 PNGs, ~608 finds)
+     and a silesia.large call (the archive from the benchmark's generator,
+     ~4,045 finds); each
+     shape's kernel time by CUDA events beside its bound (the bytes its
+     finds must scan at 3.35 TB/s), the native finder's and the plain
+     version's; inflate_large(use_device=True) and inflate_batch(backend=
+     "device") each launching it once, every find counted on the card,
+     their lanes the native finder's; the checked build over the same
+     finds with no fault, and one injected read outside a stream caught.
+     ``find_only()`` runs this phase alone after the builds.
 Each kernel's count of launches is set to 0 just before the path that
 uses it and read just after; the checked build's counts must still be 0
 after [3], [4] and [3]-[11], and in [12]'s own process (the main path
@@ -232,7 +246,11 @@ INJECT_LANES = 256
 STREAM_SITES = ("shared", "lut", "input", "token", "carry", "meta", "uninit")
 CHUNK_SITES = ("input", "token", "carry")
 KERNEL_NAMES = ("decode_stream_kernel", "decode_chunk_kernel",
-                "adler32_batch_kernel")
+                "adler32_batch_kernel", "find_starts_kernel")
+# [14]: the block finder; the archive's seed, and the host finder's clamp at
+# a stream's end
+FIND_SILESIA_SEED = 2147483659
+FIND_TAIL_BITS = 144
 
 
 def log(*a):
@@ -1760,13 +1778,294 @@ def phase_checked(dt, decode_cu, checksums_cu, ib, pack, malformed, streams,
                                            "checked")}}
 
 
+def find_scanned_bytes(finds, hits) -> int:
+    """The bytes the finds must read: each window from its start up to its
+    hit, or whole where it has none (the bound of [14])."""
+    _, lens, lo, hi = (np.asarray(x, np.int64) for x in finds)
+    a, b = np.maximum(lo, 0), np.minimum(hi, 8 * lens - FIND_TAIL_BITS)
+    hits = np.asarray(hits, np.int64)
+    upto = np.where(hits >= 0, hits + 1, b)
+    return int(np.maximum(upto - a, 0).sum() // 8)
+
+
+def kodak_find_args(seed: int):
+    """A kodak32.batch call's joined body and its finds, as split._launch
+    makes them: the IDAT bodies without their zlib headers, one find at
+    every segment target of every stream."""
+    from defl_tpu_torch.runtime import split
+
+    _, inputs = kodak_batch(seed)
+    bodies = [b"".join(bytes(c) for c in chunks)[2:] for chunks in inputs]
+    offs, lens, lo, hi, at = [], [], [], [], 0
+    seg = split.SEGMENT_BYTES
+    for b in bodies:
+        n_seg = len(b) // seg
+        for k in range(1, n_seg):
+            t = k * 8 * len(b) // n_seg
+            offs.append(at)
+            lens.append(len(b))
+            lo.append(t)
+            hi.append(min(t + 16 * seg, 8 * len(b)))
+        at += len(b)
+    return np.frombuffer(b"".join(bodies), np.uint8), (offs, lens, lo, hi)
+
+
+def silesia_stream(seed: int) -> bytes:
+    """One silesia.large archive as its zlib stream (211,957,760 B raw),
+    made by the benchmark's generator."""
+    from codec_bench.data import silesia_tar
+
+    with open("codec_bench/configs/silesia_tar_zlib6.json") as f:
+        fmt = json.load(f)["format"]
+    return silesia_tar.make_pool(fmt, seed, 1, 1)[0].streams[0]
+
+
+def silesia_find_args(stream: bytes):
+    """The large route's finds over an archive's body: one at every
+    SEGMENT_BYTES target (large._find_candidates)."""
+    from defl_tpu_torch.runtime import large
+
+    body = np.frombuffer(stream, np.uint8)[2:]
+    seg = large.SEGMENT_BYTES
+    lo = [k * 8 * seg for k in range(1, body.size // seg)]
+    return body, ([0] * len(lo), [body.size] * len(lo), lo,
+                  [min(t + 16 * seg, 8 * body.size) for t in lo])
+
+
+def find_fuzz_args():
+    """The fuzz corpus's streams (seeds of tests/test_fuzz.py), random
+    bytes and streams of small blocks, back to back in one body at odd
+    offsets, each searched every 256 bytes, whole, and past its ends."""
+    from defl_tpu_torch import corpus
+
+    blocks = corpus.make_silesia_like(8 * 65536)
+    pays = corpus.fuzz_payloads(blocks)
+    rng = np.random.default_rng(11)
+    streams = [d for s in CHECKED_FUZZ_SEEDS
+               for _, d in corpus.fuzz_cases(s, 60, pays) if d]
+    streams.append(rng.integers(0, 256, 4096, dtype=np.uint8).tobytes())
+    for ml in (4, 8):
+        co = zlib.compressobj(6, zlib.DEFLATED, -15, ml)
+        streams.append(co.compress(blocks[1]) + co.flush())
+    parts, offs, lens, lo, hi, at = [b"\x5a"], [], [], [], [], 1
+    for d in streams:
+        n = len(d)
+        wins = [(8 * t, 8 * (t + 2048)) for t in range(0, n, 256)]
+        wins += [(-37, 8 * n + 999), (0, 8 * n), (8 * n - 300, 8 * n)]
+        for a, b in wins:
+            offs.append(at)
+            lens.append(n)
+            lo.append(a)
+            hi.append(b)
+        parts += [d, b"\xa5\x5a\xff"]
+        at += n + 3
+    return np.frombuffer(b"".join(parts), np.uint8), (offs, lens, lo, hi)
+
+
+def find_on_card(find_cu, body_dev, finds, **kw):
+    return find_cu.find_block_starts(body_dev, *finds, **kw).numpy()
+
+
+def phase_find_shape(find_cu, native, name, body, finds):
+    """[14] at one shape: the kernel against the native finder and the
+    plain version on every find, the three timed; the checked build on the
+    same finds.  Returns its record."""
+    lib = native.load()
+    dev = torch.device("cuda")
+    body_dev = torch.from_numpy(body.copy()).to(dev)
+    torch.cuda.synchronize()
+    want = native.find_block_starts(lib, body, *finds)
+    host_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        native.find_block_starts(lib, body, *finds)
+        host_s.append(time.perf_counter() - t0)
+    l0 = find_cu.launches
+    got = find_on_card(find_cu, body_dev, finds)
+    if find_cu.launches != l0 + 1:
+        raise AssertionError(f"[14] {name}: not one launch")
+    err = int(np.abs(got - want).max(initial=0))
+    wrong = np.flatnonzero(got != want)
+    if wrong.size:
+        raise AssertionError(f"[14] {name}: {wrong.size} of {len(want)} "
+                             f"finds differ from the native finder, first "
+                             f"{wrong[:5].tolist()}: kernel "
+                             f"{got[wrong[:5]].tolist()}, native "
+                             f"{want[wrong[:5]].tolist()}")
+    ms, times = cuda_ms(lambda: find_cu.find_block_starts(body_dev, *finds),
+                        reps=7)
+    t0 = time.perf_counter()
+    ref = find_cu.find_block_starts(torch.from_numpy(body.copy()),
+                                    *finds).numpy()
+    ref_s = time.perf_counter() - t0
+    if ref.tolist() != want.tolist():
+        raise AssertionError(f"[14] {name}: the plain version differs")
+    ck = find_on_card(find_cu, body_dev, finds, checked=True)
+    if ck.tolist() != want.tolist():
+        raise AssertionError(f"[14] {name}: the checked build differs")
+    ck_ms, _ = cuda_ms(lambda: find_cu.find_block_starts(
+        body_dev, *finds, checked=True), reps=3)
+    scanned = find_scanned_bytes(finds, want)
+    bound_ms, bound_by = roofline(scanned, 0)
+    return {"finds": len(want), "hits": int((want >= 0).sum()),
+            "body_bytes": int(body.size), "max_abs_err": err,
+            "ms": ms, "times": times,
+            "host_s": float(np.median(host_s)), "host_times": host_s,
+            "plain_s": ref_s,
+            "checked_ms": ck_ms, "scanned_bytes": scanned,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_find(dt, find_cu, native, build, metrics, silesia):
+    """[14]: the block finder on the card (module docstring)."""
+    from defl_tpu_torch.runtime import large
+
+    rec = {}
+    faults0 = build.faults["find_starts"]
+    for name, make in (("fuzz", find_fuzz_args),
+                       ("kodak32", lambda: kodak_find_args(BATCH_SPLIT_SEED)),
+                       ("silesia", lambda: silesia_find_args(silesia))):
+        body, finds = make()
+        rec[name] = phase_find_shape(find_cu, native, name, body, finds)
+        log_find_shape(name, rec[name])
+        if name == "fuzz":
+            fuzz = torch.from_numpy(body.copy()).cuda(), finds, \
+                native.find_block_starts(native.load(), body, *finds)
+        del body
+
+    # the two routes: one launch each, and the native finder's lanes
+    seen = []
+    orig = large.find_lane_starts
+
+    def spy(body, spans, seg_bits, n_threads=None, body_dev=None):
+        m0 = metrics.snapshot()
+        got = orig(body, spans, seg_bits, n_threads, body_dev)
+        m1 = metrics.snapshot()
+        seen.append({
+            "equal": got == orig(body, spans, seg_bits),
+            "on_card": body_dev is not None
+            and body_dev.device.type == "cuda",
+            "finds": sum(len(s[3]) for s in spans),
+            **{k: m1.get(k, 0) - m0.get(k, 0)
+               for k in ("lane_finds", "lane_finds_card")}})
+        return got
+
+    large.find_lane_starts = spy
+    try:
+        raw, inputs = kodak_batch(BATCH_SPLIT_SEED)
+        cap = max(len(r) for r in raw)
+        routes = {}
+        for name, call in (
+                ("inflate_large", lambda: dt.inflate_large(
+                    silesia, use_device=True)),
+                ("inflate_batch", lambda: dt.inflate_batch(
+                    inputs, backend="device", dst_capacities=cap))):
+            l0 = find_cu.launches
+            del seen[:]
+            res = call()
+            ok = res[0] == 0 if name == "inflate_large" else \
+                [int(r) for r in res[0]] == [0] * len(raw) and res[1] == raw
+            if not ok:
+                raise AssertionError(f"[14] {name}: not OK")
+            if find_cu.launches - l0 != 1 or len(seen) != 1 \
+                    or not (seen[0]["equal"] and seen[0]["on_card"]) \
+                    or seen[0]["lane_finds"] != seen[0]["finds"] \
+                    or seen[0]["lane_finds_card"] != seen[0]["finds"]:
+                raise AssertionError(f"[14] {name}: launches "
+                                     f"{find_cu.launches - l0}, finds "
+                                     f"{seen}")
+            routes[name] = {"launches": find_cu.launches - l0, **seen[0]}
+            del res
+        rec["routes"] = routes
+    finally:
+        large.find_lane_starts = orig
+
+    # the fault records' counts over the three shapes' checked launches
+    rec["faults"] = build.faults["find_starts"] - faults0
+    if rec["faults"]:
+        raise AssertionError(f"[14] faults over the inputs: {rec['faults']}")
+
+    # one injected read outside a find's stream, in thread 0 of the first
+    # find that has a hit (so its window is not empty)
+    fuzz_dev, finds, hits = fuzz
+    k = int(np.flatnonzero(hits >= 0)[0])
+    try:
+        find_on_card(find_cu, fuzz_dev, finds, inject=k)
+    except build.KernelFault as e:
+        if (e.site, e.lane, e.slot) != ("find", k, find_cu.INJECT_SLOT) \
+                or e.index < e.extent:
+            raise AssertionError(f"[14] injection caught at the wrong "
+                                 f"place: {e}") from e
+        rec["injection"] = {k2: getattr(e, k2) for k2 in (
+            "site", "lane", "block", "slot", "index", "extent")}
+    else:
+        raise AssertionError("[14] the injected read was not caught")
+    rec["checked_launches"] = find_cu.checked_launches
+    rec["ptxas"] = {b: ptxas_kernels(log, b).get("find_starts_kernel")
+                    for b, log in (("unchecked", build.build_log),
+                                   ("checked", build.checked_build_log))}
+    return rec
+
+
+def find_only() -> int:
+    """[14] alone, after the builds [1] makes:
+    ``python3 -c "import sys, chip_smoke as cs; sys.exit(cs.find_only())"``.
+    """
+    import defl_tpu_torch as dt
+    from defl_tpu_torch import metrics
+    from defl_tpu_torch.ops.cuda import build, find_cu
+    from defl_tpu_torch.runtime import native
+
+    smi = nvidia_smi()
+    log(f"[14] card: {smi}")
+    with ThreadPoolExecutor(max_workers=3) as ex:
+        jobs = [ex.submit(native.load), ex.submit(build.load, True)]
+        build.load()
+        for j in jobs:
+            j.result()
+    t0 = time.perf_counter()
+    silesia = silesia_stream(FIND_SILESIA_SEED)
+    log(f"[14] the archive's stream: {len(silesia)} B, made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rec = phase_find(dt, find_cu, native, build, metrics, silesia)
+    log_find(rec)
+    print(json.dumps({"find_starts": rec}))
+    print(smi)
+    return 0
+
+
+def log_find_shape(shape, r) -> None:
+    log(f"[14] {shape}: {r['finds']} finds ({r['hits']} hits) over "
+        f"{r['body_bytes']} B: kernel == native finder == the plain version "
+        f"on every find (max_abs_err {r['max_abs_err']}), checked build "
+        f"== both; kernel "
+        f"{r['ms']:.4f} ms (median of {len(r['times'])}: "
+        f"{[round(t, 4) for t in r['times']]}), native finder "
+        f"{r['host_s'] * 1e3:.2f} ms on the host's threads, plain version "
+        f"{r['plain_s']:.2f} s, checked {r['checked_ms']:.4f} ms; bound "
+        f"{r['bound_ms']:.4f} ms by {r['bound_by']} ({r['scanned_bytes']} B "
+        f"scanned)")
+
+
+def log_find(rec) -> None:
+    for name, r in rec["routes"].items():
+        log(f"[14] {name}: {r['launches']} find launch, {r['lane_finds']} "
+            f"finds all on the card, lanes == the native finder's")
+    log(f"[14] checked build: {rec['faults']} faults over the three shapes")
+    log(f"[14] injected read outside find {rec['injection']['lane']}'s "
+        f"stream caught: {json.dumps(rec['injection'])}; checked launches "
+        f"{rec['checked_launches']}; ptxas {json.dumps(rec['ptxas'])}")
+
+
 def no_checked_launches(decode_cu, checksums_cu, where):
     """The main path never launches the checked build."""
+    from defl_tpu_torch.ops.cuda import find_cu
+
     n = (decode_cu.checked_launches, decode_cu.checked_chunk_launches,
-         checksums_cu.checked_launches)
+         checksums_cu.checked_launches, find_cu.checked_launches)
     if any(n):
         raise AssertionError(f"{where}: checked launches (decode_stream, "
-                             f"decode_chunk, adler32_batch) {n}")
+                             f"decode_chunk, adler32_batch, find_starts) {n}")
 
 
 def main() -> int:
@@ -1785,7 +2084,7 @@ def main() -> int:
     from defl_tpu_torch.ops import huffman_pack as hp
     from defl_tpu_torch.ops import inflate_batch as ib
     from defl_tpu_torch.ops import resolve
-    from defl_tpu_torch.ops.cuda import build, checksums_cu, decode_cu
+    from defl_tpu_torch.ops.cuda import build, checksums_cu, decode_cu, find_cu
     from defl_tpu_torch.runtime import large, native, pack, split
     from defl_tpu_torch.runtime.session import fetch_tokens
 
@@ -1801,7 +2100,8 @@ def main() -> int:
         build.load()
         host_build.result()
         checked_build.result()
-    log(f"[1] builds: nvcc (decode_stream.cu, adler32_batch.cu) "
+    log(f"[1] builds: nvcc (decode_stream.cu, adler32_batch.cu, "
+        f"find_starts.cu) "
         f"{build.build_seconds:.2f} s, its checked build (-DDEFL_CHECKED "
         f"-lineinfo) {build.checked_build_seconds:.2f} s, g++ (defl_batch.cc) "
         f"{native.build_seconds:.2f} s, together "
@@ -2155,6 +2455,15 @@ def main() -> int:
     log(f"[13] card: {smi}; the checked build took "
         f"{time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 14. the block finder ----
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    silesia = silesia_stream(FIND_SILESIA_SEED)
+    fd = phase_find(dt, find_cu, native, build, metrics, silesia)
+    del silesia
+    log_find(fd)
+    log(f"[14] the block finder took {time.perf_counter() - t_phase:.1f} s")
+
     # decode_stream: the whole-batch launch of [2c]; plain_ms is the chunk
     # loop's time for plain_lanes of its lanes (the twin's time hardly
     # depends on the lane count).  The chunk kernel of [2b] shares the
@@ -2245,7 +2554,23 @@ def main() -> int:
             "injections_caught": n_caught["adler32"],
             "ms": ms13["adler32"][0], "unchecked_ms": ms13["adler32"][1],
             "ptxas": {k: v["adler32_batch_kernel"]
-                      for k, v in ck13["ptxas"].items()}}}]
+                      for k, v in ck13["ptxas"].items()}}}, {
+        "name": "find_starts", "route": "cuda",
+        "source": "defl_tpu_torch/csrc/find_starts.cu",
+        "replaces": None,
+        # [14]: launches on the main path (the routes', each counted from
+        # its call); max_abs_err: the kernel's bits against the native
+        # finder's over each shape; each shape's kernel, bound, native
+        # finder and plain version; the checked build's faults over the
+        # shapes, before the injection
+        "launches": sum(r["launches"] for r in fd["routes"].values()),
+        "max_abs_err": max(fd[k]["max_abs_err"]
+                           for k in ("fuzz", "kodak32", "silesia")),
+        "library_ms": None,
+        **{k: fd[k] for k in ("fuzz", "kodak32", "silesia", "routes")},
+        "checked": {"launches": fd["checked_launches"],
+                    "faults": fd["faults"], "injection": fd["injection"],
+                    "ptxas": fd["ptxas"]}}]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // The checked build of the port's kernels (-DDEFL_CHECKED): what
-// decode_stream.cu and adler32_batch.cu share.
+// decode_stream.cu, adler32_batch.cu and find_starts.cu share.
 //
 // In a checked build every access of a kernel to device and shared memory
 // is checked against the extent its launch was given, at one of the sites
@@ -23,7 +23,9 @@ constexpr int SITE_SHARED = 1,  // a lane's word of shared memory
     SITE_META = 6,              // the launch's totals
     SITE_UNINIT = 7,            // a shared word or lookup entry read before
                                 // this launch wrote it
-    SITE_ADLER = 8;             // adler32: a lane's bytes, its checksum
+    SITE_ADLER = 8,             // adler32: a lane's bytes, its checksum
+    SITE_FIND = 9;              // find_starts: a find's stream bytes, its
+                                // arguments and result
 // the fault record: faults counted, then the first one's site, lane, block,
 // slot (the thread's place in its block), index and extent
 constexpr int F_COUNT = 0, F_SITE = 1, F_LANE = 2, F_BLOCK = 3, F_SLOT = 4,

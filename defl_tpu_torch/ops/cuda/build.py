@@ -31,14 +31,14 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "csrc")
 _BUILD = os.path.join(_CSRC, "build")
-SOURCES = ("decode_stream.cu", "adler32_batch.cu")
+SOURCES = ("decode_stream.cu", "adler32_batch.cu", "find_starts.cu")
 HEADERS = ("checked.cuh",)
 ARCH = "arch=compute_90a,code=sm_90a"
 CHECKED_FLAGS = ("-DDEFL_CHECKED", "-lineinfo")
 
 #: the checked build's sites, csrc/checked.cuh SITE_* in order from 1
 SITES = ("shared", "lut", "input", "token", "carry", "meta", "uninit",
-         "adler32")
+         "adler32", "find")
 #: int64 words of a fault record: faults counted, then the first one's
 #: site, lane, block, slot, index and extent (csrc/checked.cuh F_*)
 FAULT_WORDS = 8
@@ -57,7 +57,8 @@ checked_build_log = ""
 checked_build_seconds = 0.0
 #: faults that checked launches found, by kernel: the count word of each
 #: fault record that ``raise_fault`` read
-faults = {"decode_stream": 0, "decode_chunk": 0, "adler32_batch": 0}
+faults = {"decode_stream": 0, "decode_chunk": 0, "adler32_batch": 0,
+          "find_starts": 0}
 _faults_lock = threading.Lock()
 
 
@@ -178,5 +179,8 @@ def load(checked: bool = False):
         lib.adler32_batch_launch.restype = i
         lib.adler32_batch_launch.argtypes = [p, ll, i, i, p, p, p, i,
                                              *([p, i] if checked else [])]
+        lib.find_starts_launch.restype = i
+        lib.find_starts_launch.argtypes = [p, p, i, p, p, i,
+                                           *([p, i] if checked else [])]
         _libs[checked] = lib
         return lib

@@ -4,10 +4,12 @@ Counterpart of ``defl_tpu/runtime/large.py``.  DEFLATE is bit-serial, so
 one huge stream cannot be split into lanes directly; the answer is
 speculation on block boundaries (rapidgzip, CODAG):
 
-  1. The native block finder (``dt_find_block_start``) scans for dynamic-
-     block headers at arbitrary bit offsets near evenly spaced byte
-     targets (3-bit BTYPE filter, code-length Kraft filter, then a full
-     table-free validation of the header).
+  1. The block finder scans for dynamic-block headers at arbitrary bit
+     offsets near evenly spaced byte targets (3-bit BTYPE filter,
+     code-length Kraft filter, then a full table-free validation of the
+     header): on a card its kernel over the uploaded body
+     (``csrc/find_starts.cu``), on the CPU the native finder
+     (``dt_find_block_starts``); both give the same starts.
   2. Every segment becomes one lane of the decode kernel, which reads the
      one body on the card (``decode_tokens(shared_input=True)``).  Lanes
      run with a reach of 32768 before their start: back-references into
@@ -32,9 +34,9 @@ Differences from the JAX module:
   JAX module's default is; there is no environment switch.  The card
   route is taken by name: ``use_device=True``, or
   ``batch_inflate(backend="device")`` for a stream past the lane limit.
-- The body goes up once, from page-locked memory on a side stream, while
-  the host finds the block starts; exactly the occupied token rows come
-  back (``session.fetch_tokens``).
+- The body goes up once, from page-locked memory on a side stream, and
+  the finds and the decode read it there; exactly the occupied token rows
+  come back (``session.fetch_tokens``).
 - The JAX module's quiet reroutes of ``use_device=True`` show: too few
   segments or candidates leave the serial stitch, ``stats_out["route"]``
   is ``"device"``, ``"host_parallel"`` or ``"serial"``, and ``metrics``
@@ -42,8 +44,10 @@ Differences from the JAX module:
   every call that named the device and ran no lane there,
   ``large_device_rerouted``; a body past the int32 bit cursors raises
   ``ValueError`` instead of taking the host engine.
-- The finds of a call run in one native call on the host's threads
-  (``dt_find_block_starts``), not from a pool of Python threads.
+- The finds of a call run in one launch of the block finder on the
+  card (``ops/cuda/find_cu``) over the uploaded body, not from a pool of
+  Python threads on the host; on the CPU, in one native call on the
+  host's threads (``dt_find_block_starts``).
 - The lanes after the head that the stitch could take before the output
   holds a whole window are decoded serially (``head_guard``): in the JAX
   module a corrupt distance there that reaches before the stream's first
@@ -66,7 +70,7 @@ from defl_tpu_torch import metrics
 from defl_tpu_torch.constants import (ZLIB_CM_DEFLATE, ZLIB_FLAG_FDICT,
                                       ZLIB_MAX_CINFO)
 from defl_tpu_torch.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
-from defl_tpu_torch.ops.cuda import decode_cu
+from defl_tpu_torch.ops.cuda import decode_cu, find_cu
 from defl_tpu_torch.runtime import native, session
 
 #: target compressed bytes per device lane (about one deflate block at
@@ -107,15 +111,21 @@ def device_route_allowed(body_size: int) -> bool:
 
 
 def find_lane_starts(body: np.ndarray, spans, seg_bits: int,
-                     n_threads: int | None = None) -> list[list[int]]:
+                     n_threads: int | None = None,
+                     body_dev: torch.Tensor | None = None) -> list[list[int]]:
     """Each chain's lane starts, in bits of its own stream: ``spans[s]`` =
     (byte offset of the stream in ``body``, its bytes, the chain's head
     bit, the bit targets to find near).  A chain is its head, then the
     first block start the finder validates between each target and two
     segments past it, in increasing order (a find that sees none, or the
-    one before's, adds no lane).  Every find of every chain runs in one
-    native call on the host's threads, each reading its own stream only
-    (``dt_find_block_starts``)."""
+    one before's, adds no lane).  Every find of every chain reads its own
+    stream only, and all run at once: where ``body_dev``, the body as
+    ``upload_body`` gave it and ordered by ``wait_body``, lies on a CUDA
+    device, in one launch of the block finder there
+    (``find_cu.find_block_starts``); else in one native call on the host's
+    threads over ``body`` (``dt_find_block_starts``).  ``metrics`` counts
+    every find in ``lane_finds``, and those on the card also in
+    ``lane_finds_card``."""
     owner, offs, lens, lo, hi = [], [], [], [], []
     for s, (off, n, _, targets) in enumerate(spans):
         for t in targets:
@@ -124,8 +134,13 @@ def find_lane_starts(body: np.ndarray, spans, seg_bits: int,
             lens.append(n)
             lo.append(t)
             hi.append(min(t + 2 * seg_bits, 8 * n))
-    hits = native.find_block_starts(native.load(), body, offs, lens, lo, hi,
-                                    n_threads)
+    if body_dev is not None and body_dev.device.type == "cuda":
+        hits = find_cu.find_block_starts(body_dev, offs, lens, lo, hi)
+        metrics.inc("lane_finds_card", len(lo))
+    else:
+        hits = native.find_block_starts(native.load(), body, offs, lens, lo,
+                                        hi, n_threads)
+    metrics.inc("lane_finds", len(lo))
     chains = [[head] for _, _, head, _ in spans]
     for s, h in zip(owner, hits.tolist()):
         if h > chains[s][-1]:
@@ -134,10 +149,11 @@ def find_lane_starts(body: np.ndarray, spans, seg_bits: int,
 
 
 def _find_candidates(body: np.ndarray, start_bit: int, n_seg: int,
-                     seg_bits: int, n_threads: int = 4) -> list[int]:
+                     seg_bits: int, n_threads: int = 4,
+                     body_dev: torch.Tensor | None = None) -> list[int]:
     targets = [start_bit + k * seg_bits for k in range(1, n_seg)]
     return find_lane_starts(body, [(0, body.size, start_bit, targets)],
-                            seg_bits, n_threads)[0]
+                            seg_bits, n_threads, body_dev)[0]
 
 
 def host_body(total: int, dev: torch.device):
@@ -208,8 +224,9 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     stats_out (optional dict) receives ``route`` and per-stage seconds,
     each the length of its span ``defl.large.<stage>`` (``metrics.span``):
     ``parallel_s`` (host engine) or ``body_s`` (the page-locked body's
-    allocation, fill and the upload's start), ``find_s``, ``upload_s``
-    (what was left of the body's upload after the find), ``decode_s``,
+    allocation, fill and the upload's start), ``upload_s`` (the wait for
+    the upload, which the finds and the decode read), ``find_s``,
+    ``decode_s``,
     ``fetch_s``, ``stitch_s`` with ``segments`` (of ``SEGMENT_BYTES``;
     under 3 the stream is too short to split and takes the serial
     stitch), ``lanes``, ``lanes_valid`` and ``tok_rows`` (device
@@ -264,17 +281,20 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     st["segments"] = n_seg
     body_dev = side = None
     if n_seg > 2:
-        # the upload of the shared body runs beside the block find below:
+        # one upload of the shared body, read by the finds and the decode:
         # nothing per lane ships to the device
         with metrics.span("defl.large.body") as sp:
             host, view = host_body(body.size, dev)
             view[:body.size] = body
             body_dev, side = upload_body(host, dev)
         st["body_s"] = sp.s
+        with metrics.span("defl.large.upload") as sp:
+            wait_body(body_dev, side, dev)
+        st["upload_s"] = sp.s
 
     with metrics.span("defl.large.find") as sp:
         cands = _find_candidates(body, 0, n_seg, 8 * seg,
-                                 native._default_threads()) \
+                                 native._default_threads(), body_dev) \
             if n_seg > 1 else [0]
     st["find_s"] = sp.s
 
@@ -282,9 +302,6 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     st["route"] = "serial"
     if body_dev is not None and len(cands) > 2:
         st["route"] = "device"
-        with metrics.span("defl.large.upload") as sp:
-            wait_body(body_dev, side, dev)
-        st["upload_s"] = sp.s
         lane_info = _device_decode(body_dev, body.size, cands, chunk_steps,
                                    st)
         # how many speculative lanes validated (status OK and ended

@@ -456,6 +456,21 @@ def find_block_start(lib, body, bit_lo: int, bit_hi: int) -> int:
                                        bit_lo, bit_hi))
 
 
+def find_args(body_bytes: int, offs, lens, lo, hi) -> list[np.ndarray]:
+    """Many finds' arguments as four int64 [n] arrays (offs, lens, lo,
+    hi), each stream inside a body of ``body_bytes``; raises ValueError
+    otherwise."""
+    args = [np.ascontiguousarray(a, dtype=np.int64)
+            for a in (offs, lens, lo, hi)]
+    n = args[0].size
+    if any(a.shape != (n,) for a in args):
+        raise ValueError("offs, lens, lo and hi must be [n] each")
+    if n and (int(args[0].min()) < 0 or int(args[1].min()) < 0
+              or int((args[0] + args[1]).max()) > body_bytes):
+        raise ValueError("a stream lies outside the body")
+    return args
+
+
 def find_block_starts(lib, body, offs, lens, lo, hi,
                       n_threads: int | None = None) -> np.ndarray:
     """Many finds in one call, on ``n_threads`` native threads: find k
@@ -463,14 +478,8 @@ def find_block_starts(lib, body, offs, lens, lo, hi,
     bytes at byte ``offs[k]`` of ``body`` (uint8 ndarray), and reads
     nothing outside it.  Returns int64 [n]: each find's bit offset in its
     own stream, or -1, as ``find_block_start``."""
-    args = [np.ascontiguousarray(a, dtype=np.int64)
-            for a in (offs, lens, lo, hi)]
+    args = find_args(body.size, offs, lens, lo, hi)
     n = args[0].size
-    if any(a.shape != (n,) for a in args):
-        raise ValueError("offs, lens, lo and hi must be [n] each")
-    if n and (int(args[0].min()) < 0 or int(args[1].min()) < 0
-              or int((args[0] + args[1]).max()) > body.size):
-        raise ValueError("a stream lies outside the body")
     out = np.empty(n, np.int64)
     lib.dt_find_block_starts(_in_u8(body), *(a.ctypes.data_as(_i64p)
                                              for a in args),

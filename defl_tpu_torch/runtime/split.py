@@ -10,10 +10,12 @@ mode:
 
   1. The streams' deflate bodies (zlib headers checked and stripped on the
      host) are copied chunk by chunk into one page-locked body, which goes
-     up on a side stream while the host finds the block starts.
-  2. The native block finder looks for a block start near every segment
-     target of every long stream; the finds of the whole batch run in one
-     native call on the host's threads (``large.find_lane_starts``).
+     up on a side stream.
+  2. The block finder looks for a block start near every segment target
+     of every long stream; the finds of the whole batch run at once
+     (``large.find_lane_starts``): on a card in one launch of its kernel
+     over the uploaded body, on the CPU in one native call on the host's
+     threads.
   3. One launch decodes every segment of every stream: each lane's cursors
      are positions in the joined body, its ``nbits`` is the end of its own
      stream (no lane reads into the next one), its reach before its start
@@ -207,17 +209,17 @@ def _launch(lib, streams, group, sizes, caps, hdr, chunk_steps, dev):
             spans.append((offs[i], sizes[i], 0,
                           [k * bits // n_seg for k in range(1, n_seg)]
                           if n_seg >= 3 else []))
+        with metrics.span("defl.upload"):
+            large.wait_body(body_dev, side, dev)
         with metrics.span("defl.split.find"):
-            cands = dict(zip(live, large.find_lane_starts(body, spans,
-                                                          seg_bits)))
+            cands = dict(zip(live, large.find_lane_starts(
+                body, spans, seg_bits, body_dev=body_dev)))
         kws = [large.lane_args(sizes[i], cands[i], offs[i],
                                min(caps[i], _LANE_CAP)) for i in live]
         kw = {k: np.concatenate([a[k] for a in kws])
               for k in kws[0] if k != "T"}
         nbits, zflag, cap = kw.pop("nbits"), kw.pop("zflag"), kw.pop("cap")
         kw["T"] = max(a["T"] for a in kws)
-    with metrics.span("defl.upload"):
-        large.wait_body(body_dev, side, dev)
     with metrics.span("defl.decode"):
         toks, st = decode_cu.decode_tokens(
             body_dev, nbits, zflag, cap, K=chunk_steps,

@@ -228,11 +228,12 @@ def test_an_injected_access_raises_in_shared_input_mode(libs, monkeypatch,
     assert (e.value.site, e.value.lane, e.value.slot) == (site, lane, MID)
 
 
-#: a library with the three entry points, which g++ builds in place of
+#: a library with the four entry points, which g++ builds in place of
 #: nvcc, and the report that stands in for ptxas's
 _STUB = 'extern "C" {%s}' % "".join(
     f"int {n}_launch() {{ return 0; }} "
-    for n in ("decode_stream", "decode_chunk", "adler32_batch"))
+    for n in ("decode_stream", "decode_chunk", "adler32_batch",
+              "find_starts"))
 _REPORT = "ptxas info    : Used 255 registers, 64 bytes smem\n"
 
 
@@ -306,7 +307,8 @@ def _constants(name):
 def test_the_checked_builds_constants_mirror_the_wrappers():
     h = _constants("checked.cuh")
     assert [h[f"SITE_{s}"] for s in ("SHARED", "LUT", "INPUT", "TOKEN",
-                                     "CARRY", "META", "UNINIT", "ADLER")] \
+                                     "CARRY", "META", "UNINIT", "ADLER",
+                                     "FIND")] \
         == [cu_build.site_id(s) for s in cu_build.SITES]
     assert [h[f"F_{f.upper()}"] for f in cu_build.FAULT_FIELDS] == \
         list(range(len(cu_build.FAULT_FIELDS)))
@@ -329,7 +331,7 @@ def test_the_checked_build_is_refused_off_the_card():
 #: the modules that define the checked launches; every other module of the
 #: port, the main path among them, must never ask for one
 _WRAPPERS = {"ops/cuda/build.py", "ops/cuda/decode_cu.py",
-             "ops/cuda/checksums_cu.py"}
+             "ops/cuda/checksums_cu.py", "ops/cuda/find_cu.py"}
 
 
 def test_no_module_of_the_port_asks_for_the_checked_build():

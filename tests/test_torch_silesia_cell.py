@@ -161,6 +161,9 @@ def test_the_shrunk_cell_is_correct_on_the_device_route_and_reads_its_metrics(
                                         "device_idle_pct.inflate"}
     assert r["metrics"]["large_lane_valid_pct"]["value"] == \
         100.0 * snap["large_device_lanes_valid"] / snap["large_device_lanes"]
+    # every find on the host: the CPU has no card to find on
+    assert snap["lane_finds"] > 0
+    assert r["metrics"]["find_card_pct"]["value"] == 0.0
     for name in ("large_find_pct", "large_stitch_pct", "large_body_pct",
                  "large_verify_pct"):
         assert 0 < r["metrics"][name]["value"] < 100, name
