@@ -1789,7 +1789,7 @@ def find_scanned_bytes(finds, hits) -> int:
 
 
 def kodak_find_args(seed: int):
-    """A kodak32.batch call's joined body and its finds, as split._launch
+    """A kodak32.batch call's joined body and its finds, as split._pack
     makes them: the IDAT bodies without their zlib headers, one find at
     every segment target of every stream."""
     from defl_tpu_torch.runtime import split

@@ -52,8 +52,10 @@ Differences from the JAX module:
   holds a whole window are decoded serially (``head_guard``): in the JAX
   module a corrupt distance there that reaches before the stream's first
   byte resolves against bytes the stream does not have, and comes back
-  OK.  ``runtime/split.py`` decodes a batch's long streams with the same
-  pieces.
+  OK.
+- The launch and the stitch are the chain path (``chain_lanes``,
+  ``decode_chains``, ``stitch_chains``), which ``runtime/split.py`` runs a
+  batch's long streams through as many chains of one launch.
 - The stitch gets ``out[:cap_total]``: a caller buffer larger than the
   declared ``dst_capacity`` is filled up to the capacity only, and EFULL
   comes back past it.  (The JAX module hands its stitch the whole buffer.)
@@ -226,11 +228,11 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     ``parallel_s`` (host engine) or ``body_s`` (the page-locked body's
     allocation, fill and the upload's start), ``upload_s`` (the wait for
     the upload, which the finds and the decode read), ``find_s``,
-    ``decode_s``,
-    ``fetch_s``, ``stitch_s`` with ``segments`` (of ``SEGMENT_BYTES``;
-    under 3 the stream is too short to split and takes the serial
-    stitch), ``lanes``, ``lanes_valid`` and ``tok_rows`` (device
-    engine).  Under FLAG_VERIFY_ADLER32 the trailer's check of an OK
+    ``decode_s`` and ``fetch_s`` (spans ``defl.decode`` and ``defl.fetch``
+    of ``decode_chains``), ``stitch_s`` with ``segments`` (of
+    ``SEGMENT_BYTES``; under 3 the stream is too short to split and takes
+    the serial stitch), ``lanes``, ``lanes_valid`` and ``tok_rows``
+    (device engine).  Under FLAG_VERIFY_ADLER32 the trailer's check of an OK
     stream is span ``defl.large.verify``, on either engine (``_finish``)."""
     data = bytes(data)
     zf = bool(flags & FLAG_ZLIB)
@@ -302,17 +304,10 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     st["route"] = "serial"
     if body_dev is not None and len(cands) > 2:
         st["route"] = "device"
-        lane_info = _device_decode(body_dev, body.size, cands, chunk_steps,
-                                   st)
-        # how many speculative lanes validated (status OK and ended
-        # exactly on the next candidate, or in the final block).  The
-        # stitch span-decodes any gap, so a broken device path only shows
-        # as serial speed: this count makes it visible and testable
-        st["lanes_valid"] = int(seams(cands, lane_info).sum())
-        st["lanes"] = len(cands)
-        lane_info = head_guard(cands, lane_info)
-        metrics.inc("large_device_lanes", st["lanes"])
-        metrics.inc("large_device_lanes_valid", st["lanes_valid"])
+        chains = [(0, body.size, cands, SEGMENT_CAP)]
+        lane_info, got = decode_chains(body_dev, chains, chain_lanes(chains),
+                                       chunk_steps, dev)
+        st.update(got)
     else:
         metrics.inc("large_device_rerouted")
     del body_dev
@@ -322,9 +317,20 @@ def inflate_large(data, flags=FLAG_ZLIB, dst_capacity=None,
     # high-ratio stream retries the stitch alone; the block find and the
     # device decode are reused.
     with metrics.span("defl.large.stitch") as sp:
-        r, total, end_bit, buf, _ = stitch_grown(body, cands, lane_info,
-                                                 cap_total, grow, 1 << 40,
-                                                 out)
+        if lane_info is None:
+            r, total, end_bit, buf, _ = stitch_grown(body, cands, None,
+                                                     cap_total, grow, 1 << 40,
+                                                     out)
+        else:
+            buf = out[:cap_total] if caller_out \
+                else np.zeros(cap_total, np.uint8)
+            [(r, total, end_bit, buf, _, valid, _)] = stitch_chains(
+                body, chains, lane_info, [buf], grow, 1 << 40)
+            # how many speculative lanes validated: the stitch span-decodes
+            # any gap, so a broken device path only shows as serial speed
+            st["lanes"], st["lanes_valid"] = len(cands), valid
+            metrics.inc("large_device_lanes", len(cands))
+            metrics.inc("large_device_lanes_valid", valid)
     st["stitch_s"] = sp.s
     return _finish(r, total, end_bit, body, buf, flags, zf, caller_out)
 
@@ -381,7 +387,8 @@ def stitch_grown(body, cands, lane_info, cap: int, grow: bool, limit: int,
     the output buffer.  Returns (Result, total, end bit, buffer, cap)."""
     while True:
         buf = out if out is not None else np.zeros(cap, np.uint8)
-        r, total, end_bit = _stitch(body, cands, lane_info, buf[:cap])
+        r, total, end_bit = native.stitch(native.load(), body, cands,
+                                         lane_info, buf[:cap])
         if r is Result.EFULL and grow and cap < limit:
             cap = min(4 * cap, limit)
             continue
@@ -456,31 +463,71 @@ def head_guard(cands, lane_info):
     return toks, dst_pos, status, final, bit_end
 
 
-def _device_decode(body_dev, body_bytes, cands, chunk_steps, stats=None):
-    """Decode every candidate segment as one lane against the SHARED body
-    on the device (one upload, per-lane cursors into the whole stream).
-    Returns (toks u32 [M, rows], dst_pos, status, final, bit_end)."""
-    kw = lane_args(body_bytes, cands)
+def chain_lanes(chains) -> dict:
+    """``decode_tokens``' arguments for many chains in one launch over one
+    body: chain s = (byte offset of its stream in the body, the stream's
+    bytes, its lane starts, its lanes' output cap), each as ``lane_args``
+    gives it, under the largest step budget."""
+    kws = [lane_args(n, cands, off, cap) for off, n, cands, cap in chains]
+    kw = {k: np.concatenate([a[k] for a in kws]) for k in kws[0] if k != "T"}
+    kw["T"] = max(a["T"] for a in kws)
+    return kw
+
+
+def decode_chains(body_dev, chains, kw, chunk_steps, dev):
+    """One launch over every lane of ``chains`` (``kw`` from
+    ``chain_lanes``) against the SHARED body ``body_dev``, in span
+    ``defl.decode``; the occupied token rows and the lanes' totals come
+    back in span ``defl.fetch``.  Returns (lane_info = (tokens u32 [M,
+    rows], dst_pos, status, final, bit_end in bits of each chain's own
+    stream), {``tok_rows``, ``decode_s``, ``fetch_s``})."""
+    kw = dict(kw)
     nbits, zflag, cap = kw.pop("nbits"), kw.pop("zflag"), kw.pop("cap")
-    with metrics.span("defl.large.decode") as decode:
+    with metrics.span("defl.decode") as decode:
         toks, st = decode_cu.decode_tokens(
             body_dev, nbits, zflag, cap, K=chunk_steps, dict_len=WINDOW,
-            shared_input=True, **kw)
+            shared_input=True, device=dev, **kw)
+    # only the occupied token rows cross, lane-major for the stitch
+    with metrics.span("defl.fetch") as fetch:
+        toks_nt = session.fetch_tokens([(toks, st["tok_rows"])])
         meta = torch.stack([st["dst_pos"], st["status"], st["final"],
                             st["bitpos"]]).cpu().numpy()
-    # only the occupied token rows cross, lane-major for the stitch
-    with metrics.span("defl.large.fetch") as fetch:
-        toks_nt = session.fetch_tokens([(toks, st["tok_rows"])])
-    if stats is not None:
-        stats["decode_s"] = decode.s
-        stats["tok_rows"] = int(st["tok_rows"])
-        stats["fetch_s"] = fetch.s
     dst_pos, status, final, bitpos = meta
-    return toks_nt, dst_pos, status, final, bitpos.astype(np.int64)
+    base = np.repeat([8 * c[0] for c in chains], [len(c[2]) for c in chains])
+    return ((toks_nt, dst_pos, status, final, bitpos.astype(np.int64) - base),
+            {"tok_rows": int(st["tok_rows"]), "decode_s": decode.s,
+             "fetch_s": fetch.s})
 
 
-def _stitch(body, cands, lane_info, out):
-    """Stitch the speculative chain: resolve valid lanes, span-decode the
-    gaps, in one native call (dt_stitch) over the whole chain.  Returns
-    (Result, total_bytes, end_bit)."""
-    return native.stitch(native.load(), body, cands, lane_info, out)
+def stitch_chains(body, chains, lane_info, outs, grow: bool, ceiling: int):
+    """Every chain of one launch stitched into its own output ``outs[s]``
+    (a whole uint8 array a chain), in one native call (``dt_stitch_many``:
+    one chain a task, a lone chain on the calling thread): valid lanes
+    resolve, and gaps and the lanes ``head_guard`` marks decode serially.
+    With ``grow`` a chain that ends EFULL is stitched again into a grown
+    output, up to ``ceiling`` bytes (``stitch_grown``).  Returns a tuple a
+    chain: (Result, bytes out, end bit in its stream, its output buffer,
+    the capacity it ended with, its valid lanes (``seams``, before the
+    guard), whether the stitch took every lane's tokens)."""
+    first = np.cumsum([0] + [len(c[2]) for c in chains])
+    own = [tuple(a[f:f + len(c[2])] for a in lane_info)
+           for c, f in zip(chains, first)]
+    guarded = [head_guard(c[2], o) for c, o in zip(chains, own)]
+    rs, totals, ends = native.stitch_many(
+        native.load(), body, [c[0] for c in chains], [c[1] for c in chains],
+        first[:-1], [len(c[2]) for c in chains],
+        np.concatenate([c[2] for c in chains]),
+        (*lane_info[:2], np.concatenate([g[2] for g in guarded]),
+         *lane_info[3:]), outs,
+        n_threads=min(len(chains), native._default_threads()))
+    done = []
+    for (off, n, cands, _), o, g, r, total, end, buf in zip(
+            chains, own, guarded, rs, totals.tolist(), ends.tolist(), outs):
+        cap = buf.size
+        if r is Result.EFULL and grow and cap < ceiling:
+            r, total, end, buf, cap = stitch_grown(
+                body[off:off + n], cands, g, min(4 * cap, ceiling), True,
+                ceiling)
+        done.append((r, total, end, buf, cap, int(seams(cands, o).sum()),
+                     bool(seams(cands, g).all())))
+    return done

@@ -35,16 +35,49 @@ class PackedBatch:
         return int(self.nbits.max(initial=0)) // 8
 
 
+def chunks(s) -> list:
+    """A stream's chunks: ``bytes``, ``bytearray`` and ``memoryview`` are
+    one stream of one chunk; anything else is a list of chunks (≙ repeated
+    infl_include)."""
+    return [s] if isinstance(s, (bytes, bytearray, memoryview)) else s
+
+
+def stream_length(s) -> int:
+    return sum(len(c) for c in chunks(s))
+
+
+def stream_head(s, n: int) -> bytes:
+    """The first ``n`` bytes of a stream."""
+    out = b""
+    for c in chunks(s):
+        out += bytes(memoryview(c)[:n - len(out)])
+        if len(out) >= n:
+            break
+    return out
+
+
+def joined(s) -> bytes:
+    """A stream's bytes in one piece (chunk coalescing)."""
+    return b"".join(chunks(s))
+
+
+def stream_caps(streams, dst_capacities) -> list[int]:
+    """Each stream's output capacity: ``dst_capacities`` as declared (one
+    int for every stream, or one a stream), else 64 times the stream's
+    length, at most 64 MiB (64 for an empty stream)."""
+    if dst_capacities is None:
+        return [min(64 * stream_length(s), 1 << 26) or 64 for s in streams]
+    if np.isscalar(dst_capacities):
+        return [int(dst_capacities)] * len(streams)
+    return [int(c) for c in dst_capacities]
+
+
 def pack_streams(streams, zlib_flags, dst_caps) -> PackedBatch:
-    """streams: list of bytes OR list of chunk-lists (non-contiguous input,
-    ≙ repeated infl_include).  zlib_flags/dst_caps: scalars or per-stream
-    sequences."""
+    """streams: list of streams (``chunks``).  zlib_flags/dst_caps: scalars
+    or per-stream sequences."""
     bufs = []
     for s in streams:
-        if isinstance(s, (bytes, bytearray, memoryview)):
-            b = bytes(s)
-        else:
-            b = b"".join(bytes(c) for c in s)  # chunk coalescing
+        b = joined(s)
         if len(b) > MAX_STREAM_BYTES:
             raise ValueError(
                 f"stream of {len(b)} bytes exceeds device limit "

@@ -37,7 +37,7 @@ from defl_tpu_torch.errors import FLAG_ZLIB, Result
 from defl_tpu_torch.ops import inflate_batch as ib
 from defl_tpu_torch.ops.cuda import decode_cu
 from defl_tpu_torch.runtime import native
-from defl_tpu_torch.runtime.pack import pack_streams
+from defl_tpu_torch.runtime.pack import joined, pack_streams
 from defl_tpu_torch.runtime.session import _pick_decoder, fetch_tokens
 
 
@@ -151,10 +151,8 @@ def pipeline_inflate(stream_batches, dst_capacity: int, flags=FLAG_ZLIB,
         def retry():
             # single-threaded: runs beside the next batches' resolves
             rs, os_ = native.native_inflate_batch(
-                [stream_batches[i][k] if isinstance(
-                    stream_batches[i][k], (bytes, bytearray))
-                 else b"".join(bytes(c) for c in stream_batches[i][k])
-                 for k in rerun], C, flags, n_threads=1)
+                [joined(stream_batches[i][k]) for k in rerun], C, flags,
+                n_threads=1)
             for j, k in enumerate(rerun):
                 status[k] = int(rs[j])
                 dst_pos[k] = len(os_[j])

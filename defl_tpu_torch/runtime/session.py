@@ -37,8 +37,9 @@ from defl_tpu_torch.ops.checksums import adler32_batch
 from defl_tpu_torch.ops.cuda import checksums_cu, decode_cu
 from defl_tpu_torch.ops.resolve import resolve_tokens
 from defl_tpu_torch.runtime import native
-from defl_tpu_torch.runtime.pack import (MAX_STREAM_BYTES, pack_dictionary,
-                                         pack_streams)
+from defl_tpu_torch.runtime.pack import (MAX_STREAM_BYTES, joined,
+                                         pack_dictionary, pack_streams,
+                                         stream_caps, stream_length)
 
 
 def _bucket(x: int) -> int:
@@ -128,16 +129,9 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
             _count(n_in, outputs, stats)
             return results, outputs, stats
 
-    if dst_capacities is None:
-        # No declared capacity: assume a generous ratio; lanes that still
-        # hit EFULL resume on the device with a grown budget below.
-        caps = [min(64 * len(b) if isinstance(b, (bytes, bytearray)) else
-                    64 * sum(len(c) for c in b), 1 << 26) or 64
-                for b in streams]
-    else:
-        caps = ([int(dst_capacities)] * n_in
-                if np.isscalar(dst_capacities) else
-                [int(c) for c in dst_capacities])
+    # No declared capacity: a generous ratio is assumed; lanes that still
+    # hit EFULL resume on the device with a grown budget below.
+    caps = stream_caps(streams, dst_capacities)
 
     zf = flags & FLAG_ZLIB
     with metrics.span("defl.pack"):
@@ -219,13 +213,10 @@ def device_inflate(streams, flags=FLAG_ZLIB, dictionary=None,
     fb_idx = [i for i in range(n_in) if int(status[i]) == ib.STATUS_RUNNING]
     fb = {}
     if fb_idx:
-        datas = [bytes(streams[i]) if isinstance(streams[i],
-                                                 (bytes, bytearray))
-                 else b"".join(bytes(c) for c in streams[i])
-                 for i in fb_idx]
         fb = dict(zip(fb_idx, _host_fallback(
-            datas, None if dst_capacities is None
-            else [caps[i] for i in fb_idx], flags, dictionary)))
+            [joined(streams[i]) for i in fb_idx],
+            None if dst_capacities is None else [caps[i] for i in fb_idx],
+            flags, dictionary)))
 
     results: list[Result] = []
     outputs: list[bytes] = []
@@ -300,18 +291,6 @@ def _host_fallback(datas, caps, flags, dictionary):
     return list(zip(results, outputs))
 
 
-def _joined(s) -> bytes:
-    return bytes(s) if isinstance(s, (bytes, bytearray)) else \
-        b"".join(bytes(c) for c in s)
-
-
-def _cap_of(dst_capacities, i):
-    if dst_capacities is None:
-        return None
-    return int(dst_capacities) if np.isscalar(dst_capacities) \
-        else int(dst_capacities[i])
-
-
 def batch_inflate(streams, flags=FLAG_ZLIB, backend="auto", dictionary=None,
                   dst_capacities=None, device="cuda"):
     """Public batch decode entry (see api.inflate_batch).
@@ -327,28 +306,26 @@ def batch_inflate(streams, flags=FLAG_ZLIB, backend="auto", dictionary=None,
     who wants the host says ``backend="host"`` or ``device="cpu"``.
     """
     n = len(streams)
-    sizes = [len(s) if isinstance(s, (bytes, bytearray)) else
-             sum(len(c) for c in s) for s in streams]
-    big = [i for i, sz in enumerate(sizes) if sz > MAX_STREAM_BYTES]
+    caps = [None] * n if dst_capacities is None else \
+        stream_caps(streams, dst_capacities)
+    big = [i for i, s in enumerate(streams)
+           if stream_length(s) > MAX_STREAM_BYTES]
     if big and backend in ("auto", "device") and not dictionary:
         from defl_tpu_torch.runtime.large import inflate_large
 
         big_set = set(big)
         small_idx = [i for i in range(n) if i not in big_set]
-        sub_caps = None
-        if dst_capacities is not None:
-            sub_caps = (dst_capacities if np.isscalar(dst_capacities)
-                        else [dst_capacities[i] for i in small_idx])
         s_res, s_out = batch_inflate(
             [streams[i] for i in small_idx], flags, backend, dictionary,
-            sub_caps, device) if small_idx else ([], [])
+            None if dst_capacities is None else [caps[i] for i in small_idx],
+            device) if small_idx else ([], [])
         results = [None] * n
         outputs = [b""] * n
         for j, i in enumerate(small_idx):
             results[i], outputs[i] = s_res[j], s_out[j]
         for i in big:
             results[i], outputs[i] = inflate_large(
-                _joined(streams[i]), flags, _cap_of(dst_capacities, i),
+                joined(streams[i]), flags, caps[i],
                 use_device=True if backend == "device" else None,
                 device=device)
         return results, outputs
@@ -363,8 +340,7 @@ def batch_inflate(streams, flags=FLAG_ZLIB, backend="auto", dictionary=None,
     results = []
     outputs = []
     for i, s in enumerate(streams):
-        r, o = inflate_oracle(_joined(s), flags, _cap_of(dst_capacities, i),
-                              dictionary)
+        r, o = inflate_oracle(joined(s), flags, caps[i], dictionary)
         results.append(r)
         outputs.append(o)
     return results, outputs

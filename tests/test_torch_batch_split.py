@@ -25,8 +25,10 @@ from defl_tpu_torch.api import inflate_batch
 from defl_tpu_torch.corpus import make_silesia_like
 from defl_tpu_torch.errors import FLAG_VERIFY_ADLER32, FLAG_ZLIB, Result
 from defl_tpu_torch.ops import inflate_batch as ib
+from defl_tpu_torch.ops.cuda import decode_cu
 from defl_tpu_torch.runtime import large as tlarge
 from defl_tpu_torch.runtime import native as tnative
+from defl_tpu_torch.runtime import pack as tpack
 from defl_tpu_torch.runtime import session as tsess
 from defl_tpu_torch.runtime import split
 
@@ -353,16 +355,53 @@ def test_a_batch_past_the_cursors_goes_in_more_than_one_launch(
                         lambda n: n < bound)
     assert split._groups(sizes + [50, 60]) == [[0], [1], [2, 3]]
     calls = []
-    launch = split._launch
+    launch = tlarge.decode_chains
 
-    def counted(*a, **k):
-        calls.append(a[2])
-        return launch(*a, **k)
+    def counted(body_dev, chains, *a, **k):
+        calls.append([n for _, n, _, _ in chains])
+        return launch(body_dev, chains, *a, **k)
 
-    monkeypatch.setattr(split, "_launch", counted)
+    monkeypatch.setattr(tlarge, "decode_chains", counted)
     r, o, _, moved = _inflate(comps)
     assert r == [Result.OK, Result.OK] and o == raws
-    assert calls == [[0], [1]] and moved["batch_split_streams"] == 2
+    assert calls == [[sizes[0]], [sizes[1]]]
+    assert moved["batch_split_streams"] == 2
+
+
+@pytest.mark.parametrize("route", ["batch", "large"])
+def test_both_routes_launch_and_stitch_through_the_chain_path(
+        raws, comps, small_segments, monkeypatch, route):
+    """A batch of several long streams (kodak32.batch's shape, shrunk) and
+    one ``inflate_large(use_device=True)`` call each reach the decode
+    kernel through ``large.decode_chains``, once a launch, and the native
+    stitch through ``large.stitch_chains``, once."""
+    calls = {"decode_tokens": 0, "decode_chains": 0, "stitch_chains": 0}
+
+    def counting(module, name):
+        f = getattr(module, name)
+
+        def counted(*a, **k):
+            calls[name] += 1
+            return f(*a, **k)
+        monkeypatch.setattr(module, name, counted)
+
+    counting(decode_cu, "decode_tokens")
+    counting(tlarge, "decode_chains")
+    counting(tlarge, "stitch_chains")
+    if route == "batch":
+        streams = [comps[0], _chunked(comps[1], 700), comps[1], comps[0]]
+        r, o, _, moved = _inflate(streams)
+        assert r == [Result.OK] * 4 and o == [raws[0], raws[1], raws[1],
+                                              raws[0]]
+        assert moved["batch_split_streams"] == 4
+    else:
+        monkeypatch.setattr(tlarge, "SEGMENT_BYTES", SEG)
+        st = {}
+        r, o = tlarge.inflate_large(comps[1], use_device=True, stats_out=st,
+                                    device="cpu")
+        assert r is Result.OK and o == raws[1] and st["route"] == "device"
+    assert calls == {"decode_tokens": 1, "decode_chains": 1,
+                     "stitch_chains": 1}
 
 
 def test_header_verdicts():
@@ -371,7 +410,8 @@ def test_header_verdicts():
     assert tlarge.header_result(b"") is Result.UNFINISHED
     for bad in (b"\x79\x9c", b"\x78\x9d", b"\x88\x98", b"\x78\xbb"):
         assert tlarge.header_result(bad) is Result.ERR, bad
-    assert split._head([b"x", b"", memoryview(b"\x9cabc")], 2) == b"x\x9c"
+    assert tpack.stream_head([b"x", b"", memoryview(b"\x9cabc")], 2) == \
+        b"x\x9c"
 
 
 def test_stream_choice(comps, small_segments):

@@ -328,3 +328,14 @@ def test_pipeline_sink_and_host_retry():
     for status, outs in per_batch:
         assert status == [0] * 8
         assert outs == pays + [b"Z"]
+
+
+@pytest.mark.parametrize("backend", ["device", "host", "auto"])
+def test_a_memoryview_is_one_stream_on_every_backend(backend):
+    """A ``memoryview`` is one stream, as ``bytes`` is, on every backend
+    (``defl_tpu`` reads it as a list of chunks and raises)."""
+    pays = [b"hello world %d " % i * 10 for i in range(8)]
+    zs = [memoryview(zlib.compress(p)) for p in pays]
+    res, outs = inflate_batch(zs, backend=backend, device="cpu")
+    assert res == [Result.OK] * 8
+    assert outs == [zlib.decompress(z) for z in zs] == pays
