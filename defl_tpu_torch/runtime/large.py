@@ -436,7 +436,7 @@ def seams(cands, lane_info) -> np.ndarray:
     return (status == 0) & ((final > 0) | (bit_end == nxt))
 
 
-def head_guard(cands, lane_info):
+def head_guard(cands, lane_info, body):
     """``lane_info`` with the lanes after the head that the stitch could
     take before its output holds a whole window marked not OK, so that
     the stitch decodes them serially.
@@ -447,7 +447,12 @@ def head_guard(cands, lane_info):
     the stream does not have; the serial decode meets it as the engines
     do.  Once the chain of validated lanes from the head has put out a
     window, no distance can reach before the stream, and every later lane
-    stands.  A chain whose head is not bit 0 is left as it is."""
+    stands.  Where that chain breaks first (a false block start among the
+    first lanes), the head of the chain's stream ``body`` is decoded
+    serially (``head_window_bit``) to the first block boundary after a
+    whole window, and the lanes from there on stand; where that decode
+    fails, every lane after the head is marked.  A chain whose head is not
+    bit 0 is left as it is."""
     M = len(cands)
     if M < 2 or cands[0] != 0:
         return lane_info
@@ -455,12 +460,39 @@ def head_guard(cands, lane_info):
     ok = np.logical_and.accumulate(seams(cands, lane_info)[:-1])
     out = np.cumsum(dst_pos[:-1].astype(np.int64))   # before lane k = 1..
     whole = np.flatnonzero(ok & (out >= WINDOW))
-    first = int(whole[0]) + 1 if whole.size else M
-    if first == 1:
+    if whole.size:
+        first = int(whole[0]) + 1
+    else:
+        first = int(np.searchsorted(cands, head_window_bit(body, cands)))
+    if first <= 1:
         return lane_info
     status = status.copy()
     status[1:first] = 1
     return toks, dst_pos, status, final, bit_end
+
+
+#: the output ``head_window_bit`` decodes into, at most: a window and a
+#: lane's cap past it
+_HEAD_CAP = WINDOW + SEGMENT_CAP
+
+
+def head_window_bit(body, cands) -> int:
+    """The first block boundary, among the points where the stitch's
+    serial decode from bit 0 stops (the first at or past each lane start
+    in turn), at which the stream's output holds a whole window; past the
+    stream's end (no lane stands) where the decode ends, fails or puts
+    out more than ``_HEAD_CAP`` bytes first."""
+    lib = native.load()
+    out = np.empty(_HEAD_CAP, np.uint8)
+    bit = n = 0
+    while n < WINDOW:
+        k = int(np.searchsorted(cands, bit, side="right"))
+        if k == len(cands):
+            return 8 * body.size + 1
+        r, n, bit = native.inflate_span(lib, body, bit, int(cands[k]), out, n)
+        if r is not Result.OK or bit < 0:
+            return 8 * body.size + 1
+    return bit
 
 
 def chain_lanes(chains) -> dict:
@@ -501,9 +533,13 @@ def decode_chains(body_dev, chains, kw, chunk_steps, dev):
 
 def stitch_chains(body, chains, lane_info, outs, grow: bool, ceiling: int):
     """Every chain of one launch stitched into its own output ``outs[s]``
-    (a whole uint8 array a chain), in one native call (``dt_stitch_many``:
-    one chain a task, a lone chain on the calling thread): valid lanes
-    resolve, and gaps and the lanes ``head_guard`` marks decode serially.
+    (a whole uint8 array a chain), in one native call (``dt_stitch_many``
+    on the host's threads: one chain a task, or, with fewer chains than
+    threads, each long chain on every thread): valid lanes resolve, and
+    gaps and the lanes ``head_guard`` marks decode.  ``metrics`` counts
+    the chains in ``stitch_chains``, those stitched on every thread in
+    ``stitch_chains_parallel``, and those that the parallel stitch gave
+    back to the one-thread walk in ``stitch_chains_fallback``.
     With ``grow`` a chain that ends EFULL is stitched again into a grown
     output, up to ``ceiling`` bytes (``stitch_grown``).  Returns a tuple a
     chain: (Result, bytes out, end bit in its stream, its output buffer,
@@ -512,14 +548,19 @@ def stitch_chains(body, chains, lane_info, outs, grow: bool, ceiling: int):
     first = np.cumsum([0] + [len(c[2]) for c in chains])
     own = [tuple(a[f:f + len(c[2])] for a in lane_info)
            for c, f in zip(chains, first)]
-    guarded = [head_guard(c[2], o) for c, o in zip(chains, own)]
-    rs, totals, ends = native.stitch_many(
+    guarded = [head_guard(c[2], o, body[c[0]:c[0] + c[1]])
+               for c, o in zip(chains, own)]
+    rs, totals, ends, modes = native.stitch_many(
         native.load(), body, [c[0] for c in chains], [c[1] for c in chains],
         first[:-1], [len(c[2]) for c in chains],
         np.concatenate([c[2] for c in chains]),
         (*lane_info[:2], np.concatenate([g[2] for g in guarded]),
-         *lane_info[3:]), outs,
-        n_threads=min(len(chains), native._default_threads()))
+         *lane_info[3:]), outs, n_threads=native._default_threads())
+    metrics.inc("stitch_chains", len(chains))
+    metrics.inc("stitch_chains_parallel",
+                int((modes == native.STITCH_PARALLEL).sum()))
+    metrics.inc("stitch_chains_fallback",
+                int((modes == native.STITCH_FALLBACK).sum()))
     done = []
     for (off, n, cands, _), o, g, r, total, end, buf in zip(
             chains, own, guarded, rs, totals.tolist(), ends.tolist(), outs):

@@ -139,7 +139,7 @@ def load():
         lib.dt_stitch_many.argtypes = [
             _u8p, _i64p, _i64p, _i64p, _i64p, ctypes.c_int64, _i64p,
             _u32p, ctypes.c_int64, _i32p, _i32p, _i32p, _i64p, _pptr, _u64p,
-            _i32p, _u64p, _i64p, ctypes.c_int]
+            _i32p, _u64p, _i64p, _i32p, ctypes.c_int]
         lib.dt_deflate_fields_batch.restype = ctypes.c_int
         lib.dt_deflate_fields_batch.argtypes = [
             _pptr, _u64p, _u32p, ctypes.c_int64, _i64p, _i64p, _u32p, _i32p,
@@ -593,16 +593,26 @@ def stitch(lib, body, cands, lane_info, out):
     return Result(r), int(total.value), int(end_bit.value)
 
 
+#: ``stitch_many``'s modes, a chain each: ``dt_stitch``'s walk, one chain
+#: a task; the two passes of one chain on every thread; and those passes
+#: giving the chain back to that walk (an error, EFULL, or lanes that do
+#: not resolve), which stitched it then
+STITCH_TASK, STITCH_PARALLEL, STITCH_FALLBACK = 0, 1, 2
+
+
 def stitch_many(lib, body, offs, lens, first, count, cands, lane_info, outs,
                 n_threads: int | None = None):
-    """Many chains stitched in one call (``dt_stitch_many``), one a task on
+    """Many chains stitched in one call (``dt_stitch_many``) on
     ``n_threads`` native threads.  Chain s is the stream of ``lens[s]``
     bytes at byte ``offs[s]`` of ``body``; its lanes are ``count[s]`` lanes
     from lane ``first[s]`` of ``cands`` and ``lane_info`` = (tokens u32
     [M, T], dst_pos, status, final, bit_end), whose bit positions
     (``cands``, ``bit_end``) are in its own stream; it goes into ``outs[s]``
-    (a writable uint8 array a chain), as ``stitch`` stitches one.  Returns
-    (Results, totals, end bits), one each a chain."""
+    (a writable uint8 array a chain) with the result, total and end bit
+    that ``stitch`` gives it.  With as many chains as threads or more, one
+    chain a task; with fewer, each chain of 16 lanes or more in turn on
+    every thread (``STITCH_PARALLEL``), the others one a task.  Returns
+    (Results, totals, end bits, modes), one each a chain."""
     geo = [np.ascontiguousarray(a, dtype=np.int64)
            for a in (offs, lens, first, count)]
     S = geo[0].size
@@ -631,13 +641,15 @@ def stitch_many(lib, body, offs, lens, first, count, cands, lane_info, outs,
     results = np.zeros(S, np.int32)
     totals = np.zeros(S, np.uint64)
     end_bits = np.zeros(S, np.int64)
+    modes = np.zeros(S, np.int32)
     i64 = lambda a: a.ctypes.data_as(_i64p)
     lib.dt_stitch_many(
         _in_u8(body), *(i64(a) for a in geo), S, i64(cands_a),
         toks_a.ctypes.data_as(_u32p), toks_a.shape[1],
         *(a.ctypes.data_as(_i32p) for a in lanes[:3]), i64(lanes[3]),
         out_ptrs, caps, results.ctypes.data_as(_i32p),
-        totals.ctypes.data_as(_u64p), i64(end_bits), _threads(n_threads))
+        totals.ctypes.data_as(_u64p), i64(end_bits),
+        modes.ctypes.data_as(_i32p), _threads(n_threads))
     return ([Result(int(r)) for r in results], totals.astype(np.int64),
-            end_bits)
+            end_bits, modes)
 

@@ -135,10 +135,14 @@ def test_the_head_guard_marks_the_lanes_before_a_whole_window():
     final = np.array([0, 0, 0, 0, 1], np.int32)
     bit_end = np.array([100, 200, 300, 400, 500], np.int64)
 
+    # a body that does not decode: where the chain of validated lanes
+    # breaks before a window, every lane after the head is marked
+    body = np.zeros(64, np.uint8)
+
     def marked(dst_pos, status=(0,) * 5, head=0):
         info = (toks, np.array(dst_pos, np.int32),
                 np.array(status, np.int32), final, bit_end)
-        got = tlarge.head_guard([head] + cands[1:], info)
+        got = tlarge.head_guard([head] + cands[1:], info, body)
         assert got[0] is toks and got[3] is final and got[4] is bit_end
         return np.flatnonzero((info[2] == 0) & (got[2] != 0)).tolist()
 
@@ -152,7 +156,7 @@ def test_the_head_guard_marks_the_lanes_before_a_whole_window():
     assert marked([100] * 5) == [1, 2, 3, 4]
     one = (toks[:1], np.array([1], np.int32), np.array([0], np.int32),
            final[:1], bit_end[:1])
-    assert tlarge.head_guard([0], one) is one
+    assert tlarge.head_guard([0], one, body) is one
 
 
 def test_raw_deflate_streams_are_split_too(raws, small_segments):
@@ -484,7 +488,7 @@ def test_many_stitches_in_one_call_equal_one_at_a_time(comps, seed, copies,
     for lanes in ((toks, dst_pos, status, final, bit_end),
                   (toks, dst_pos, np.ones(M, np.int32), final, bit_end)):
         outs = [np.zeros(len(r) + 4096, np.uint8) for r in raws]
-        rs, totals, ends = tnative.stitch_many(
+        rs, totals, ends, _ = tnative.stitch_many(
             lib, body, offs, [b.size for b in bodies], first,
             [len(c) for c in cands], np.concatenate(cands), lanes, outs,
             n_threads=threads)

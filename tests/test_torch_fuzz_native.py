@@ -139,20 +139,11 @@ def _candidates(lib, body, py_rng):
     return sorted(set(cands))
 
 
-@pytest.mark.parametrize("seed", [51, 52, 53])
-def test_stitch_corrupt_lane_metadata_matches(libs, seed):
-    """dt_stitch walks untrusted status, bit_end, dst_pos and final arrays
-    and garbage tokens; some seams are made to validate so that the lane
-    resolve runs on them.  Both packages return the same (result, total,
-    end bit) and the same buffer; with no lanes (all span decodes) too."""
-    jlib, tlib = libs
-    rng = np.random.default_rng(seed)
-    py_rng = random.Random(seed)
-    payload = (CORPUS["text"] + CORPUS["json"]) * 8
-    body = np.frombuffer(zlib.compress(payload, 6)[2:], np.uint8)
+def _corrupt_lanes(body, cands, rng, py_rng, T):
+    """Untrusted lane metadata and garbage tokens for the chain ``cands``,
+    half its seams made to validate."""
     nbits = 8 * body.size
-    cands = _candidates(tlib, body, py_rng)
-    M, T = len(cands), 128
+    M = len(cands)
     toks = rng.integers(0, 1 << 32, (M, T), dtype=np.uint64).astype(np.uint32)
     dst_pos = rng.integers(-3, 1 << 20, M).astype(np.int32)
     status = rng.integers(-2, 3, M).astype(np.int32)
@@ -162,7 +153,26 @@ def test_stitch_corrupt_lane_metadata_matches(libs, seed):
         if py_rng.random() < 0.5:
             bit_end[k] = cands[k + 1]
             status[k] = 0
-    info = (toks, dst_pos, status, final, bit_end)
+    return toks, dst_pos, status, final, bit_end
+
+
+@pytest.mark.parametrize("seed", [51, 52, 53])
+def test_stitch_corrupt_lane_metadata_matches(libs, seed):
+    """dt_stitch walks untrusted status, bit_end, dst_pos and final arrays
+    and garbage tokens; some seams are made to validate so that the lane
+    resolve runs on them.  Both packages return the same (result, total,
+    end bit) and the same buffer; with no lanes (all span decodes) too.
+    Then the port's dt_stitch_many on 8 threads, one chain of small blocks
+    (many lanes, so that the two passes take it), against its dt_stitch:
+    the same (result, total, end bit) and bytes, every byte of the buffer
+    where the chain went back to the walk."""
+    jlib, tlib = libs
+    rng = np.random.default_rng(seed)
+    py_rng = random.Random(seed)
+    payload = (CORPUS["text"] + CORPUS["json"]) * 8
+    body = np.frombuffer(zlib.compress(payload, 6)[2:], np.uint8)
+    cands = _candidates(tlib, body, py_rng)
+    info = _corrupt_lanes(body, cands, rng, py_rng, 128)
     for lane_info in (info, None):
         outs = [np.zeros(len(payload) + (1 << 16), np.uint8) for _ in range(2)]
         got = tnative.stitch(tlib, body, cands, lane_info, outs[0])
@@ -170,6 +180,31 @@ def test_stitch_corrupt_lane_metadata_matches(libs, seed):
         assert (int(got[0]), *got[1:]) == (int(want[0]), *want[1:])
         assert got[0] in _CLASSES and 0 <= got[1] <= outs[0].size
         assert np.array_equal(outs[0], outs[1])
+
+    co = zlib.compressobj(6, zlib.DEFLATED, -15, 2)
+    body = np.frombuffer(co.compress(payload) + co.flush(), np.uint8)
+    cands = _candidates(tlib, body, py_rng)
+    assert len(cands) >= 16
+    info = _corrupt_lanes(body, cands, rng, py_rng, 128)
+    modes = set()
+    for lane_info in (info, (*info[:2], np.ones(len(cands), np.int32),
+                             *info[3:])):
+        outs = [np.zeros(len(payload) + (1 << 16), np.uint8) for _ in range(2)]
+        want = tnative.stitch(tlib, body, cands, lane_info, outs[1])
+        rs, totals, ends, mode = tnative.stitch_many(
+            tlib, body, [0], [body.size], [0], [len(cands)], cands,
+            lane_info, [outs[0]], n_threads=8)
+        assert (rs[0], int(totals[0]), int(ends[0])) == want
+        total = want[1]
+        assert np.array_equal(outs[0][:total], outs[1][:total])
+        if mode[0] == tnative.STITCH_PARALLEL:
+            assert not outs[0][total:].any()
+        else:
+            assert np.array_equal(outs[0], outs[1])
+        modes.add(int(mode[0]))
+    # garbage tokens give the chain back to the walk; no lanes at all (each
+    # gap decoded to tokens) is the two passes' own
+    assert tnative.STITCH_PARALLEL in modes
 
 
 @pytest.mark.parametrize("seed", [61, 62, 63])

@@ -5,9 +5,10 @@ the large route's plain versions (``inflate_large(use_device=True,
 device="cpu")``).
 
 The shrunk archive scales every member down by ``DIV``; its stream takes
-blocks of memLevel 4 and the route segments of 1 KiB, so that it spans
-many segments and takes the card's route, while the decode kernel's plain
-version stays within seconds.
+blocks of memLevel 2 and the route segments of 1 KiB, so that it spans
+many segments and takes the card's route with a lane at nearly every
+segment (enough lanes for the stitch to take the chain on every thread),
+while the decode kernel's plain version stays within seconds.
 """
 
 import io
@@ -43,8 +44,8 @@ def _small(div=DIV, **kw):
                                      for m in FMT["members"]]}
 
 
-SMALL = _small(mem_level=4)
-SHRINK = {"format": {"members": SMALL["members"], "mem_level": 4},
+SMALL = _small(mem_level=2)
+SHRINK = {"format": {"members": SMALL["members"], "mem_level": 2},
           "pool": 1,
           "params": {"dst_capacity": silesia_tar.layout(SMALL)[1]}}
 
@@ -164,6 +165,9 @@ def test_the_shrunk_cell_is_correct_on_the_device_route_and_reads_its_metrics(
     # every find on the host: the CPU has no card to find on
     assert snap["lane_finds"] > 0
     assert r["metrics"]["find_card_pct"]["value"] == 0.0
+    # the archive's one chain is stitched on every host thread
+    assert snap["stitch_chains"] > 0
+    assert r["metrics"]["stitch_parallel_pct"]["value"] == 100.0
     for name in ("large_find_pct", "large_stitch_pct", "large_body_pct",
                  "large_verify_pct"):
         assert 0 < r["metrics"][name]["value"] < 100, name
